@@ -1,0 +1,109 @@
+"""Range-image projection fused with per-ring compaction (port of
+lis_slam_tpu/ops/projection.py:project_and_extract; reference
+src/core/laserProcessing.cpp projectPointCloud :467-510 + cloudExtraction
+:515-539).
+
+On pixel collisions the NEAREST point (min quantized range, then lowest raw
+index) wins, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..config import SensorConfig
+from .pretreatment import norm3
+
+_INVALID_RANGE = 1e9
+_KEY_INVALID = 2**31 - 1
+
+
+class ExtractedCloud(NamedTuple):
+    """Per-row compacted valid pixels (cloudExtraction equivalent)."""
+
+    rng: torch.Tensor  # (N, H) compacted ranges, _INVALID_RANGE past count
+    xyz: torch.Tensor  # (N, H, 3)
+    intensity: torch.Tensor  # (N, H)
+    col: torch.Tensor  # (N, H) original column index, -1 padded
+    count: torch.Tensor  # (N,) valid count per row
+    mask: torch.Tensor  # (N, H) bool, True for compacted slots < count
+    src: torch.Tensor  # (N, H) raw-point index of each slot, -1 padded
+
+
+def project_and_extract(points: torch.Tensor, intensity: torch.Tensor,
+                        ring: torch.Tensor, rel_time: torch.Tensor,
+                        valid: torch.Tensor, cfg: SensorConfig,
+                        want_image: bool = False):
+    """Project onto the (N_SCAN, H) grid and compact each row's winners to
+    its front, via ONE stable sort on a packed (pixel, quantized-range) key:
+    the first entry per pixel is the nearest-range winner, and winners come
+    out in row-major pixel order. Returns (None, ExtractedCloud); the range
+    image (`want_image=True`) is not needed by the front end and is not
+    ported."""
+    if want_image:
+        raise NotImplementedError("the range image is not ported")
+    n, h = cfg.n_scan, cfg.horizon_scan
+    dev = points.device
+    x, y = points[:, 0], points[:, 1]
+    rng = norm3(points)
+    ok = valid & (rng >= cfg.lidar_min_range) & (rng <= cfg.lidar_max_range)
+    ok &= (ring >= 0) & (ring < n)
+    if cfg.downsample_rate > 1:
+        ok &= ring % cfg.downsample_rate == 0
+    ang_res = 360.0 / h
+    horizon_angle = torch.atan2(x, y) * (180.0 / math.pi)
+    col = (-torch.round((horizon_angle - 90.0) / ang_res)).to(torch.int32)
+    col = col + h // 2
+    col = torch.where(col >= h, col - h, col)
+    ok &= (col >= 0) & (col < h)
+
+    pix = ring * h + col
+    rq = torch.clamp(rng * (16383.0 / max(cfg.lidar_max_range, 1e-3)),
+                     0, 16382).to(torch.int32)
+    key = torch.where(ok, pix * 16384 + rq,
+                      torch.full_like(pix, _KEY_INVALID))
+    ks, order = torch.sort(key, stable=True)
+    # payload columns gathered in sorted order: rng, x, y, z, intensity,
+    # time, src (raw index, exact in f32 for P < 2^24)
+    src_f = order.to(torch.float32)
+    wp = torch.stack([rng[order], points[order, 0], points[order, 1],
+                      points[order, 2], intensity[order], rel_time[order],
+                      src_f], dim=1)
+    kpix = torch.div(ks, 16384, rounding_mode="floor")
+    first = torch.ones_like(ks, dtype=torch.bool)
+    first[1:] = kpix[1:] != kpix[:-1]
+    first &= ks != _KEY_INVALID
+
+    # winners are in row-major pixel order: a winner's slot in its row is
+    # its global winner rank minus the row's first winner rank
+    win_row = torch.where(first, torch.div(kpix, h, rounding_mode="floor"),
+                          torch.full_like(kpix, n))
+    counts = torch.bincount(win_row.to(torch.int64),
+                            minlength=n + 1)[:n].to(torch.int32)
+    row_start = torch.cumsum(counts, 0) - counts
+    wrank = torch.cumsum(first.to(torch.int32), 0) - 1
+    slot = wrank - row_start[torch.clamp(win_row, 0, n - 1).to(torch.int64)]
+    cdest = torch.where(first & (slot < h), win_row * h + slot,
+                        torch.full_like(slot, n * h)).to(torch.int64)
+    col_f = torch.remainder(kpix, h).to(torch.float32)
+    payload = torch.cat([wp, col_f[:, None]], dim=1)  # (P, 8)
+    comp = torch.zeros((n * h + 1, 8), dtype=torch.float32, device=dev)
+    comp[cdest] = payload
+    comp = comp[: n * h].reshape(n, h, 8)
+    mask = torch.arange(h, device=dev)[None, :] < counts[:, None]
+    ext = ExtractedCloud(
+        rng=torch.where(mask, comp[..., 0],
+                        torch.full_like(comp[..., 0], _INVALID_RANGE)),
+        xyz=comp[..., 1:4],
+        intensity=comp[..., 4],
+        col=torch.where(mask, comp[..., 7].to(torch.int32),
+                        torch.full_like(counts[:1], -1)),
+        count=counts,
+        mask=mask,
+        src=torch.where(mask, comp[..., 6].to(torch.int32),
+                        torch.full_like(counts[:1], -1)),
+    )
+    return None, ext

@@ -1,0 +1,250 @@
+"""Front-end odometry: the per-scan step (port of
+lis_slam_tpu/pipeline/odometry.py; reference src/node/odomEstimationNode.cpp
+multi-frame-target mode: updateInitialGuess -> currentCloudInit ->
+scan2SubMapOptimization -> transformUpdate -> saveKeyFrames).
+
+`odom_step(state, scan, cfg) -> (state, out)` is plain Python over tensors
+on the scan's device: the keyframe insert is a host branch instead of a
+`lax.cond`, and the solver loop lives in ops/scan_match.scan_to_map.
+
+State layout (fixed capacity, mask-padded), as in the JAX package: the
+sliding keyframe ring, the merged morton-ordered corner/surf maps with
+per-point keyframe age, and the pose / previous pose / constant-velocity
+increment of the initial-guess cascade.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import SlamConfig
+from ..ops import features as feat_ops
+from ..ops import pretreatment, projection, scan_match, voxel
+from ..utils import se3
+
+
+class OdomState(NamedTuple):
+    pose: torch.Tensor  # (6,)
+    prev_pose: torch.Tensor  # (6,)
+    incr: torch.Tensor  # (4, 4) constant-velocity increment
+    frame_idx: torch.Tensor  # () int32
+
+    kf_poses: torch.Tensor  # (K, 6)
+    kf_count: torch.Tensor  # () int32 total keyframes ever
+    kf_head: torch.Tensor  # () int32 ring-buffer slot for next insert
+    last_kf_pose: torch.Tensor  # (6,)
+
+    map_corner: torch.Tensor  # (Mc, 3)
+    map_corner_age: torch.Tensor  # (Mc,) keyframe index of last observation
+    map_corner_mask: torch.Tensor
+    map_surf: torch.Tensor  # (Ms, 3)
+    map_surf_age: torch.Tensor
+    map_surf_mask: torch.Tensor
+
+
+class OdomOutput(NamedTuple):
+    pose: torch.Tensor  # (6,) optimized pose for this scan
+    is_keyframe: bool
+    converged: bool
+    degenerate: bool
+    n_valid: int  # solver correspondences
+    iterations: int
+
+
+def init_state(cfg: SlamConfig, device: torch.device | str = "cpu"
+               ) -> OdomState:
+    K = cfg.keyframe.window_size
+    mc = cfg.matching.corner_map_capacity
+    ms = cfg.matching.surf_map_capacity
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return OdomState(
+        pose=torch.zeros(6, **f32),
+        prev_pose=torch.zeros(6, **f32),
+        incr=torch.eye(4, **f32),
+        frame_idx=torch.zeros((), **i32),
+        kf_poses=torch.zeros((K, 6), **f32),
+        kf_count=torch.zeros((), **i32),
+        kf_head=torch.zeros((), **i32),
+        last_kf_pose=torch.zeros(6, **f32),
+        map_corner=torch.zeros((mc, 3), **f32),
+        map_corner_age=torch.full((mc,), -(10**9), **i32),
+        map_corner_mask=torch.zeros(mc, dtype=torch.bool, device=device),
+        map_surf=torch.zeros((ms, 3), **f32),
+        map_surf_age=torch.full((ms,), -(10**9), **i32),
+        map_surf_mask=torch.zeros(ms, dtype=torch.bool, device=device),
+    )
+
+
+class ScanInput(NamedTuple):
+    """One padded raw scan. The IMU fields of the JAX ScanInput are optional
+    here; the gyro / velocity deskew that consumes them is not ported."""
+
+    points: torch.Tensor  # (P, 4) xyzi
+    valid: torch.Tensor  # (P,) bool
+    # optional external initial guess (IMU preintegration / fusion odometry,
+    # updateInitialGuess cascade, odomEstimationNode.cpp:297-419)
+    init_guess: torch.Tensor | None = None  # (6,)
+    init_guess_valid: bool = False
+    # IMU orientation at scan start for roll/pitch slerp fusion
+    # (transformUpdate, odomEstimationNode.cpp:976-1006)
+    imu_rpy: torch.Tensor | None = None  # (3,)
+    imu_rpy_valid: bool = False
+
+
+def preprocess(scan: ScanInput, cfg: SlamConfig) -> feat_ops.FeatureClouds:
+    """Pretreatment -> projection -> extraction -> features. Deskew (gyro
+    or velocity, cfg.imu) is not ported yet and raises."""
+    if cfg.imu.deskew_mode == "velocity" or cfg.imu.use_imu:
+        raise NotImplementedError(
+            "deskew is not ported yet: run with use_imu=False and "
+            "deskew_mode='gyro'")
+    pre = pretreatment.pretreat(scan.points, scan.valid, cfg.sensor)
+    _img, ext = projection.project_and_extract(
+        pre.points[:, :3], pre.points[:, 3], pre.ring, pre.rel_time,
+        pre.valid, cfg.sensor)
+    return feat_ops.extract_features(ext, cfg.feature,
+                                     greedy=cfg.feature.greedy_selection)
+
+
+def _insert_keyframe(state: OdomState, fc: feat_ops.FeatureClouds,
+                     pose: torch.Tensor, cfg: SlamConfig) -> OdomState:
+    """Merge the current feature clouds into the sliding-window map (one
+    aged-voxel merge per class, see voxel.voxel_merge_aged)."""
+    K = cfg.keyframe.window_size
+    T = se3.pose_to_matrix(pose)
+    kf_count = int(state.kf_count)
+    head = int(state.kf_head)
+    kf_poses = state.kf_poses.clone()
+    kf_poses[head] = pose
+    map_c, age_c, mask_c = voxel.voxel_merge_aged(
+        se3.transform_points(T, fc.corner_xyz), fc.corner_mask,
+        state.map_corner, state.map_corner_age, state.map_corner_mask,
+        kf_count, K, cfg.voxel.mapping_corner_leaf,
+        cfg.matching.corner_map_capacity, anchor=cfg.voxel.map_anchor)
+    map_s, age_s, mask_s = voxel.voxel_merge_aged(
+        se3.transform_points(T, fc.surf_xyz), fc.surf_mask,
+        state.map_surf, state.map_surf_age, state.map_surf_mask,
+        kf_count, K, cfg.voxel.mapping_surf_leaf,
+        cfg.matching.surf_map_capacity, anchor=cfg.voxel.map_anchor)
+    return state._replace(
+        kf_poses=kf_poses,
+        kf_count=state.kf_count + 1,
+        kf_head=torch.remainder(state.kf_head + 1, K),
+        last_kf_pose=pose,
+        map_corner=map_c, map_corner_age=age_c, map_corner_mask=mask_c,
+        map_surf=map_s, map_surf_age=age_s, map_surf_mask=mask_s,
+    )
+
+
+def _keyframe_gate(pose: torch.Tensor, last_kf_pose: torch.Tensor,
+                   kf_count: int, gn: scan_match.GNState,
+                   cfg: SlamConfig) -> bool:
+    """saveKeyFrames gate (odomEstimationNode.cpp:216-228): the solver must
+    have converged this scan, then keyframe on the first frames or on
+    per-axis motion of the relative transform since the last keyframe."""
+    rel = se3.matrix_to_pose(se3.transform_inverse(
+        se3.pose_to_matrix(last_kf_pose)) @ se3.pose_to_matrix(pose))
+    yaw, dx, dy = (float(v) for v in rel[2:5].cpu())
+    motion = (abs(yaw) >= cfg.keyframe.min_yaw
+              or abs(dx) >= cfg.keyframe.min_distance
+              or abs(dy) >= cfg.keyframe.min_distance)
+    conv = (gn.delta_r < cfg.matching.converge_delta_r_deg
+            or gn.delta_t < cfg.matching.converge_delta_t_cm
+            or not cfg.keyframe.require_convergence)
+    return conv and (kf_count <= cfg.keyframe.bootstrap_frames or motion)
+
+
+def _matched_clouds(fc: feat_ops.FeatureClouds, cfg: SlamConfig):
+    """The clouds scan_to_map matches, by cfg.matching.match_source."""
+    m = cfg.matching
+    if m.match_source == "full_ds":
+        mc_xyz, mc_mask, _ = voxel.voxel_downsample(
+            fc.corner_xyz, fc.corner_mask, m.matched_corner_leaf,
+            m.matched_corner_capacity)
+        ms_xyz, ms_mask, _ = voxel.voxel_downsample(
+            fc.surf_xyz, fc.surf_mask, m.matched_surf_leaf,
+            m.matched_surf_capacity)
+    elif m.match_source == "hybrid":
+        # sharp corner subset + voxel-UNIFORM downsample of the FULL surf
+        # cloud (spatial coverage, docs/PERF.md "coverage beats count")
+        mc_xyz, mc_mask = fc.sharp_corner_xyz, fc.sharp_corner_mask
+        ms_xyz, ms_mask, _ = voxel.voxel_downsample(
+            fc.surf_xyz, fc.surf_mask, m.matched_surf_leaf,
+            m.matched_surf_capacity)
+    else:
+        mc_xyz, mc_mask = fc.sharp_corner_xyz, fc.sharp_corner_mask
+        ms_xyz, ms_mask = fc.sharp_surf_xyz, fc.sharp_surf_mask
+    return mc_xyz, mc_mask, ms_xyz, ms_mask
+
+
+def odom_step(state: OdomState, scan: ScanInput,
+              cfg: SlamConfig) -> tuple[OdomState, OdomOutput]:
+    """Process one scan end to end: preprocess, initial guess, scan-to-map
+    optimization, keyframe insert, velocity model.
+
+    The state may be updated in place, the counterpart of the JAX step's
+    donation: thread the returned state, `state, out = odom_step(state,
+    scan, cfg)`, and do not reuse the old one (clone it first to step twice
+    from one state). The step waits on the device several times per GN
+    iteration (the 6x6 solve and the loop control run on the host) and a
+    few times per scan for the keyframe bookkeeping."""
+    fc = preprocess(scan, cfg)
+
+    # ---- initial guess cascade (updateInitialGuess :297-419):
+    # external guess > constant velocity > hold ----
+    T_prev = se3.pose_to_matrix(state.pose)
+    guess = se3.matrix_to_pose(T_prev @ state.incr)
+    if scan.init_guess_valid:
+        guess = scan.init_guess.to(guess)
+    kf_count = int(state.kf_count)
+    first = kf_count == 0
+    if first:
+        # first frame: IMU roll/pitch if available (reference seeds attitude)
+        guess = state.pose
+        if scan.imu_rpy_valid:
+            guess = torch.cat([scan.imu_rpy[:2].to(guess), state.pose[2:]])
+
+    # ---- scan-to-map optimization (:596-626) ----
+    gn = scan_match.scan_to_map(
+        guess, *_matched_clouds(fc, cfg),
+        state.map_corner, state.map_corner_mask,
+        state.map_surf, state.map_surf_mask,
+        cfg.matching, cfg.matching.max_iterations_frontend)
+    pose = guess if first else gn.pose
+
+    # IMU roll/pitch slerp fusion (transformUpdate :979-1001)
+    if scan.imu_rpy_valid and abs(float(scan.imu_rpy[1])) < 1.4:
+        imu_rpy = scan.imu_rpy.to(pose)
+        ax = torch.eye(3, dtype=pose.dtype, device=pose.device)
+        q_roll = se3.quat_slerp(se3.euler_to_quat(ax[0] * pose[0]),
+                                se3.euler_to_quat(ax[0] * imu_rpy[0]),
+                                cfg.imu.rpy_weight)
+        q_pitch = se3.quat_slerp(se3.euler_to_quat(ax[1] * pose[1]),
+                                 se3.euler_to_quat(ax[1] * imu_rpy[1]),
+                                 cfg.imu.rpy_weight)
+        pose = torch.cat([se3.quat_to_euler(q_roll)[:1],
+                          se3.quat_to_euler(q_pitch)[1:2], pose[2:]])
+
+    # constraintTransformation clamps (transformUpdate :976-1006)
+    rt, zt = cfg.runtime.rotation_tolerance, cfg.runtime.z_tolerance
+    pose = torch.cat([se3.constrain_angle(pose[:2], rt), pose[2:5],
+                      se3.constrain_angle(pose[5:], zt)])
+
+    # ---- keyframe insert + map update (saveKeyFrames) ----
+    is_kf = _keyframe_gate(pose, state.last_kf_pose, kf_count, gn, cfg)
+    if is_kf:
+        state = _insert_keyframe(state, fc, pose, cfg)
+
+    # ---- velocity model update ----
+    T_new = se3.pose_to_matrix(pose)
+    incr = (torch.eye(4, dtype=pose.dtype, device=pose.device) if first
+            else se3.transform_inverse(T_prev) @ T_new)
+    state = state._replace(pose=pose, prev_pose=state.pose, incr=incr,
+                           frame_idx=state.frame_idx + 1)
+    out = OdomOutput(pose=pose, is_keyframe=is_kf, converged=gn.converged,
+                     degenerate=gn.degenerate, n_valid=gn.n_valid,
+                     iterations=gn.it)
+    return state, out
