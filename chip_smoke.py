@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (lis_slam_torch) on one NVIDIA GPU.
 
-Drives the port's front-end odometry step, with both hand-written CUDA
-kernels, through these phases (one line each):
+Drives the port's front-end odometry step and its LiDAR-inertial path,
+with both hand-written CUDA kernels, through these phases (one or more
+lines each):
 
   1. device - torch and CUDA versions, the card's name and power limit;
   2. build  - nvcc builds csrc/knn.cu (K1, exact kNN) and csrc/gn.cu (K2,
@@ -16,12 +17,23 @@ kernels, through these phases (one line each):
               pipeline.driver.replay_odometry -> odometry.odom_step, once
               with gn_backend="xla" (K1 + plain GN) and once with "pallas"
               (K1 + K2); then each scan stepped from the same state under
-              both backends, and the host syncs per scan.
+              both backends, and the host syncs per scan;
+  6. lio    - the lio preset (VLP-16 + IMU, 16 x 1800, gn_backend "pallas")
+              on 60 motion-distorted sweeps of the same world and circuit
+              rendered on the card, 24 IMU samples per window: LioOdometry
+              (gyro + positional deskew, IMU guess, bias refresh), the
+              velocity front end, no deskew as a contrast,
+              predict_imu_rate, the IMU chain's time on the host and on the
+              card, and K1/K2 against their plain versions at the path's
+              shapes on the LIO map;
+  7. greedy - the first 10 scans of the main circuit with the
+              reference-faithful greedy feature selection, against the
+              vectorized selection's run.
 
-Then one JSON line with each kernel's launches on the main path, error
-against its plain version and times, and last the device JSON line. Any
-failed phase exits nonzero with no result line; so does a machine without
-a CUDA device, and a directory without the lis_slam_torch package.
+Then one JSON line with each kernel's launches (in all, and per path),
+error against its plain version and times, and last the device JSON line.
+Any failed phase exits nonzero with no result line; so does a machine
+without a CUDA device, and a directory without the lis_slam_torch package.
 
     python3 chip_smoke.py [--scans 60] [--out smoke_out]
 """
@@ -49,6 +61,16 @@ GN_ATOL = 2e-4  # H, g scaled by their max, as tests/test_pallas_gn.py
 ATE_MAX = 0.1  # m, per run
 RPE_T_MAX = 0.1  # m, per run
 BACKEND_AGREE_M = 0.02  # per-scan position, xla vs pallas, same state
+LIO_SCANS = 60
+VLP16 = np.linspace(15.0, -15.0, 16)  # the fan of tests/test_lio.py
+# ATE bars of the lio phase's sequence: the JAX package on a CPU
+# (scripts/lio_accuracy_bars.py, numpy renderer, gn_backend "xla"). The
+# card's renderer draws other noise over the same geometry, so a run may
+# reach 1.5 x its bar + 0.02 m; "none" is printed as a contrast only.
+JAX_ATE = {"lio": 0.7513362695843023, "velocity": 0.3204856384483959,
+           "none": 0.3534227909847982}
+GREEDY_SCANS = 10
+GREEDY_GAP_M = 0.1  # per-scan position vs the vectorized selection
 
 
 def log(phase: str, msg: str) -> None:
@@ -147,9 +169,44 @@ def _build_inputs(scans, gt, cfg, dev):
                 surf=(qs, qs_mask, ms, ms_mask), pose=pose)
 
 
-def phase_k1(inp, dev):
+def _check_knn(tag, name, q, ref, mask, k, cap):
+    """K1 against its plain version on one case: distances equal (rtol
+    KNN_RTOL), the same unfilled slots, indices equal off exact ties, the
+    gathered xyz equal to ref[idx]. Returns (max |d - d_plain|, kernel ms,
+    plain ms)."""
     import torch
     from lis_slam_torch.ops import knn_cuda
+
+    d, i, xyz = knn_cuda.knn(q, ref, mask, k=k, max_sq_dist=cap)
+    dp, ip, _xp = knn_cuda.knn_plain(q, ref, mask, k=k, max_sq_dist=cap)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(torch.isinf(d), torch.isinf(dp))),
+          f"{tag} {name}: filled slots differ")
+    check(bool(torch.equal(i < 0, torch.isinf(d))),
+          f"{tag} {name}: index -1 and d=inf disagree")
+    fin = torch.isfinite(dp)
+    err = float(torch.max(torch.abs(d[fin] - dp[fin]))) if fin.any() else 0.0
+    rel = torch.abs(d[fin] - dp[fin]) <= KNN_RTOL * torch.abs(dp[fin])
+    check(bool(rel.all()), f"{tag} {name}: distances differ (max {err})")
+    # indices equal except between exactly tied distances
+    diff = i != ip
+    check(bool(torch.equal(d[diff], dp[diff])),
+          f"{tag} {name}: {int(diff.sum())} indices differ off ties")
+    near = ref[torch.clamp(i, min=0).long()]
+    check(bool(torch.equal(torch.where((i >= 0)[..., None], near, 0.0), xyz)),
+          f"{tag} {name}: xyz != ref[idx]")
+    ms_k = cuda_ms(lambda: knn_cuda.knn(q, ref, mask, k=k, max_sq_dist=cap))
+    ms_p = cuda_ms(lambda: knn_cuda.knn_plain(q, ref, mask, k=k,
+                                              max_sq_dist=cap), iters=5)
+    filled = float((i >= 0).float().mean())
+    log(tag, f"{name}: ok, max|d-d_plain| {err:.3g}, index ties "
+        f"{int(diff.sum())}, filled {filled:.3f}, kernel {ms_k:.4f} ms, "
+        f"plain {ms_p:.4f} ms")
+    return err, ms_k, ms_p
+
+
+def phase_k1(inp, dev):
+    import torch
     from lis_slam_torch.utils import se3
 
     T = se3.pose_to_matrix(inp["pose"])
@@ -173,33 +230,7 @@ def phase_k1(inp, dev):
     worst = 0.0
     timing = None
     for name, q, ref, mask, k, cap in cases:
-        d, i, xyz = knn_cuda.knn(q, ref, mask, k=k, max_sq_dist=cap)
-        dp, ip, xp = knn_cuda.knn_plain(q, ref, mask, k=k, max_sq_dist=cap)
-        torch.cuda.synchronize()
-        check(bool(torch.equal(torch.isinf(d), torch.isinf(dp))),
-              f"K1 {name}: filled slots differ")
-        check(bool(torch.equal(i < 0, torch.isinf(d))),
-              f"K1 {name}: index -1 and d=inf disagree")
-        fin = torch.isfinite(dp)
-        err = float(torch.max(torch.abs(d[fin] - dp[fin]))) if fin.any() \
-            else 0.0
-        rel = torch.abs(d[fin] - dp[fin]) <= KNN_RTOL * torch.abs(dp[fin])
-        check(bool(rel.all()), f"K1 {name}: distances differ (max {err})")
-        # indices equal except between exactly tied distances
-        diff = i != ip
-        check(bool(torch.equal(d[diff], dp[diff])),
-              f"K1 {name}: {int(diff.sum())} indices differ off ties")
-        near = ref[torch.clamp(i, min=0).long()]
-        check(bool(torch.equal(torch.where((i >= 0)[..., None], near, 0.0),
-                               xyz)), f"K1 {name}: xyz != ref[idx]")
-        ms_k = cuda_ms(lambda: knn_cuda.knn(q, ref, mask, k=k,
-                                            max_sq_dist=cap))
-        ms_p = cuda_ms(lambda: knn_cuda.knn_plain(q, ref, mask, k=k,
-                                                  max_sq_dist=cap), iters=5)
-        filled = float((i >= 0).float().mean())
-        log("K1", f"{name}: ok, max|d-d_plain| {err:.3g}, index ties "
-            f"{int(diff.sum())}, filled {filled:.3f}, kernel {ms_k:.4f} ms, "
-            f"plain {ms_p:.4f} ms")
+        err, ms_k, ms_p = _check_knn("K1", name, q, ref, mask, k, cap)
         worst = max(worst, err)
         if timing is None or q.shape[0] * ref.shape[0] > timing[0]:
             timing = (q.shape[0] * ref.shape[0], ms_k, ms_p)
@@ -312,6 +343,20 @@ def phase_k2(inp, cfg, dev):
     # differ by ~1e-2 scaled. The kernel must stay within that rounding
     # noise: its distance to the float64 plain version may not exceed
     # twice the float32 plain version's.
+    _check_gn_real("K2", "circuit", inp, cfg)
+    return {"max_abs_err": worst, "ms": timing[1], "plain_ms": timing[2]}
+
+
+def _check_gn_real(tag, label, inp, cfg):
+    """K2 on a path's real matched clouds against its map, near the true
+    pose: no further from the float64 plain version than twice the float32
+    plain version (or GN_ATOL scaled)."""
+    import torch
+    from lis_slam_torch.ops import gn_cuda, knn_cuda
+    from lis_slam_torch.utils import se3
+
+    k = cfg.matching.nn_cache_k
+    dev = inp["pose"].device
     pose = inp["pose"] + torch.tensor([0.002, -0.001, 0.004, 0.05, -0.03,
                                        0.01], device=dev)
     T = se3.pose_to_matrix(pose)
@@ -328,24 +373,23 @@ def phase_k2(inp, cfg, dev):
         Hd, gd, nvd = gn_cuda.gn_partials_plain(
             *(a.double() if a.is_floating_point() else a for a in args),
             mode, k)
+        check(int(nvp) > 0, f"{tag} {label} {mode}: no valid rows")
         e_k = max(_scaled_err(H.double(), g.double(), Hd, gd))
         e_p = max(_scaled_err(Hp.double(), gp.double(), Hd, gd))
         e_kp = max(_scaled_err(H, g, Hp, gp))
-        log("K2", f"circuit {mode} Q{q.shape[0]}: n_valid {int(nv)} (plain "
-            f"f32 {int(nvp)}, f64 {int(nvd)}), scaled err vs plain f32 "
-            f"{e_kp:.3g}; vs plain f64: kernel {e_k:.3g}, plain f32 "
-            f"{e_p:.3g}")
+        log(tag, f"{label} {mode} Q{q.shape[0]} N{ref.shape[0]}: n_valid "
+            f"{int(nv)} (plain f32 {int(nvp)}, f64 {int(nvd)}), scaled err "
+            f"vs plain f32 {e_kp:.3g}; vs plain f64: kernel {e_k:.3g}, "
+            f"plain f32 {e_p:.3g}")
         check(e_k <= max(GN_ATOL, 2.0 * e_p),
-              f"K2 circuit {mode}: kernel {e_k:.3g} off the f64 plain "
+              f"{tag} {label} {mode}: kernel {e_k:.3g} off the f64 plain "
               f"version, plain f32 {e_p:.3g}")
-    return {"max_abs_err": worst, "ms": timing[1], "plain_ms": timing[2]}
 
 
 def phase_main(scans, gt, cfg, dev, out_dir):
     import dataclasses
 
     import torch
-    from lis_slam_torch.ops import gn_cuda, knn_cuda
     from lis_slam_torch.pipeline import driver, odometry, trajectory
 
     n = len(scans)
@@ -355,11 +399,9 @@ def phase_main(scans, gt, cfg, dev, out_dir):
     for backend in ("xla", "pallas"):
         c = cfg.replace(matching=dataclasses.replace(cfg.matching,
                                                      gn_backend=backend))
-        knn_cuda.knn.launches = 0
-        gn_cuda.gn_partials.launches = 0
+        _zero_launches()
         res = driver.replay_odometry(scans, c, warmup=5, device=dev)
-        counts[backend] = (knn_cuda.knn.launches,
-                           gn_cuda.gn_partials.launches)
+        counts[backend] = _launches()
         ate = trajectory.ate_rmse(res.poses, gt_rel, align=False)
         rpe_t, rpe_r = trajectory.rpe(res.poses, gt_rel)
         check(np.all(np.isfinite(res.poses)) and res.poses.shape == (n, 6),
@@ -431,8 +473,249 @@ def phase_main(scans, gt, cfg, dev, out_dir):
         log("main", f"gn_backend={c.matching.gn_backend}: {syncs / 10:.1f} "
             f"host syncs per scan at {iters / 10:.1f} GN iterations per scan "
             f"(scans 5-14)")
-    return {"knn": counts["xla"][0] + counts["pallas"][0],
-            "gn": counts["pallas"][1]}
+    return ({"main_xla": counts["xla"], "main_pallas": counts["pallas"]},
+            runs["pallas"].poses)
+
+
+def _launches():
+    from lis_slam_torch.ops import gn_cuda, knn_cuda
+
+    return knn_cuda.knn.launches, gn_cuda.gn_partials.launches
+
+
+def _zero_launches():
+    from lis_slam_torch.ops import gn_cuda, knn_cuda
+
+    knn_cuda.knn.launches = 0
+    gn_cuda.gn_partials.launches = 0
+
+
+def _accuracy(tag, poses, gt):
+    from lis_slam_torch.pipeline import trajectory
+
+    n = len(poses)
+    check(np.all(np.isfinite(poses)) and poses.shape == (n, 6),
+          f"{tag}: poses not finite (n, 6)")
+    gt_rel = trajectory.relative_to_first(gt[:n])
+    rpe_t, rpe_r = trajectory.rpe(poses, gt_rel)
+    return trajectory.ate_rmse(poses, gt_rel, align=False), rpe_t, rpe_r
+
+
+def _imu_chain_ms(system, window, cfg, device, dtype, reps=20):
+    """Host-clock ms of one scan's IMU chain (lio._lio_prestep, then
+    lio._lio_poststep2) from the run's final state, with every tensor
+    moved to `device` and `dtype`: the same functions the run calls."""
+    import torch
+    from lis_slam_torch.pipeline import driver, lio
+
+    def mv(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device, dtype if x.is_floating_point() else x.dtype)
+        if isinstance(x, tuple):
+            vals = [mv(v) for v in x]
+            return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+        return x
+
+    _it, ig, ia, _iv = driver.pad_imu_window(cfg, *window[1:4])
+    ig, ia = mv(torch.from_numpy(ig)), mv(torch.from_numpy(ia))
+    win, state = mv(system._prev_win), mv(system.imu_state)
+    pre1, v0 = mv(system._prev_pre), mv(system._v0)
+    pose0, pose1 = mv(system._prev_pose6), mv(system._last_pose6)
+    start = float(np.float32(window[4]))
+
+    def once():
+        pre, guess, *_ = lio._lio_prestep(ig, ia, *win, start, state, cfg)
+        out = lio._lio_poststep2(state, pre1, pre, pose0, pose1, guess, v0,
+                                 False, cfg)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return out
+
+    for _ in range(3):
+        once()
+    t = time.perf_counter()
+    for _ in range(reps):
+        once()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+def phase_lio(dev, out_dir):
+    """The LiDAR-inertial path on the lio preset (VLP-16 + IMU, full width)
+    over a motion-distorted sequence rendered on the card: LioOdometry,
+    the velocity front end, no deskew, predict_imu_rate, and K1/K2 at the
+    path's shapes against the LIO map."""
+    import dataclasses
+
+    import torch
+    from lis_slam_torch.config import lio_config
+    from lis_slam_torch.io import synthetic_torch
+    from lis_slam_torch.pipeline import driver, lio, odometry
+    from lis_slam_torch.utils import se3, se3_np
+
+    n = LIO_SCANS
+    base = lio_config()
+    cfg = base.replace(matching=dataclasses.replace(base.matching,
+                                                    gn_backend="pallas"))
+    t = time.perf_counter()
+    raw, gt = synthetic_torch.render_sequence_device(
+        n, seed=5, radius=60.0, speed=8.0, device=dev, distorted=True,
+        n_scan=16, horizon=cfg.sensor.horizon_scan, elevations=VLP16)
+    clouds = [p[v].cpu().numpy() for p, _l, v in raw]
+    del raw
+    imu = [synthetic_torch.imu_rows(gt[i], gt[i + 1]) for i in range(n)]
+    R_ext = np.asarray(cfg.imu.extrinsic_rot, np.float64)
+    # the IMU in its own frame: imu_to_lidar's extrinsic_rot brings it back
+    args = [(clouds[i], imu_t + i * 0.1, (g @ R_ext).astype(np.float32),
+             (a @ R_ext).astype(np.float32), i * 0.1)
+            for i, (g, a, imu_t) in enumerate(imu)]
+    log("lio", f"rendered {n} motion-distorted VLP-16 sweeps (16 x "
+        f"{cfg.sensor.horizon_scan}) on the card in "
+        f"{time.perf_counter() - t:.2f} s; points/scan {len(clouds[0])} of "
+        f"{cfg.sensor.max_raw_points}; {len(imu[0][2])} IMU samples per "
+        f"window over {imu[0][2][-1] - imu[0][2][0]:.3f} s")
+    counts, ates = {}, {}
+
+    # 1. LioOdometry
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    system = lio.LioOdometry(cfg, dev)
+    poses = []
+    for i, a in enumerate(args):
+        poses.append(system.process_scan(*a))
+        if i + 1 == 5:
+            torch.cuda.synchronize()
+            t0, imu0 = time.perf_counter(), system.diag.imu_s
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["lio"] = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    poses = torch.stack(poses).cpu().numpy()
+    ates["lio"], rpe_t, rpe_r = _accuracy("lio", poses, gt)
+    imu_ms = (system.diag.imu_s - imu0) / (n - 5) * 1e3
+    log("lio", f"LioOdometry: {(n - 5) / wall:.3f} scans/s ({n - 5} timed "
+        f"scans, {wall:.3f} s), ATE {ates['lio']:.4f} m (JAX CPU "
+        f"{JAX_ATE['lio']:.4f}, limit {1.5 * JAX_ATE['lio'] + 0.02:.4f}), "
+        f"RPE-t {rpe_t:.4f} m, RPE-r {rpe_r:.4f} deg, "
+        f"IMU resets {system.diag.n_resets}, IMU chain {imu_ms:.3f} ms/scan "
+        f"(host, in the run), K1 launches {counts['lio'][0]}, K2 launches "
+        f"{counts['lio'][1]}, peak device memory {peak} bytes")
+    check(system.diag.n_resets == 0,
+          f"lio: {system.diag.n_resets} IMU resets")
+    check(counts["lio"][0] > 0 and counts["lio"][1] > 0,
+          f"lio: K1/K2 launches {counts['lio']}")
+
+    # the next scan's IMU window (the last sweep's motion, one period on)
+    g, a_, imu_t = imu[-1]
+    nxt = (None, imu_t + n * 0.1, (g @ R_ext).astype(np.float32),
+           (a_ @ R_ext).astype(np.float32), n * 0.1)
+    # the IMU chain of that scan: on the host in float64 (as the run does),
+    # and the same functions on the card
+    chain = {name: _imu_chain_ms(system, nxt, cfg, torch.device(d), dt)
+             for name, d, dt in (("host f64", "cpu", torch.float64),
+                                 ("card f64", dev.type, torch.float64),
+                                 ("card f32", dev.type, torch.float32))}
+    log("lio", "IMU chain (prestep + two-window poststep) per scan, "
+        "isolated: " + ", ".join(f"{k} {v:.3f} ms" for k, v in chain.items()))
+
+    # 4. predict_imu_rate on the next window
+    rate = system.predict_imu_rate(*nxt[1:4])
+    check(rate.shape == (len(imu_t), 6) and bool(torch.isfinite(rate).all())
+          and rate.device.type == "cuda",
+          f"predict_imu_rate: {tuple(rate.shape)} on {rate.device}")
+    path = float(torch.linalg.vector_norm(rate[-1, 3:] - rate[0, 3:]))
+    log("lio", f"predict_imu_rate: ({rate.shape[0]}, 6) finite poses on the "
+        f"card, {path:.4f} m over the window (ground truth "
+        f"{8.0 * (imu_t[-1] - imu_t[0]):.4f} m)")
+
+    # K1 and K2 at the LIO path's shapes: the last scan's matched clouds
+    # (gyro-deskewed) against the LIO map, at the run's last pose
+    g_l = imu[-1][0]
+    sin = driver.pad_scan(clouds[-1], cfg, dev, imu_time=args[-1][1],
+                          imu_gyro=g_l, scan_start=args[-1][4])
+    qc, qc_mask, qs, qs_mask = odometry._matched_clouds(
+        odometry.preprocess(sin, cfg), cfg)
+    st = system.state
+    inp = dict(corner=(qc, qc_mask, st.map_corner, st.map_corner_mask),
+               surf=(qs, qs_mask, st.map_surf, st.map_surf_mask),
+               pose=torch.as_tensor(poses[-1], dtype=torch.float32,
+                                    device=dev))
+    T = se3.pose_to_matrix(inp["pose"])
+    k = cfg.matching.nn_cache_k
+    for mode, (q, _m, ref, ref_mask) in (("corner", inp["corner"]),
+                                         ("surf", inp["surf"])):
+        _check_knn("lio K1", f"{mode} Q{q.shape[0]} N{ref.shape[0]} k{k} "
+                   "cap4", se3.transform_points(T, q).contiguous(), ref,
+                   ref_mask, k, 4.0)
+    _check_gn_real("lio K2", "LIO map", inp, cfg)
+    del inp, sin
+
+    # 2. the velocity front end, body velocity and rate from ground truth
+    cv = cfg.replace(imu=dataclasses.replace(cfg.imu, use_imu=False,
+                                             deskew_mode="velocity"))
+    _zero_launches()
+    state = odometry.init_state(cv, dev)
+    vposes = []
+    for i in range(n):
+        R0 = se3_np.pose_to_matrix(gt[i])[:3, :3]
+        vel = R0.T @ (gt[i + 1][3:] - gt[i][3:]) / 0.1
+        sin = driver.pad_scan(clouds[i], cv, dev, velocity=vel,
+                              angular_rate=imu[i][0][0])
+        state, out = odometry.odom_step(state, sin, cv)
+        vposes.append(out.pose)
+    torch.cuda.synchronize()
+    counts["velocity"] = _launches()
+    ates["velocity"], rpe_t, rpe_r = _accuracy(
+        "velocity", torch.stack(vposes).cpu().numpy(), gt)
+    log("lio", f"velocity front end: ATE {ates['velocity']:.4f} m (JAX CPU "
+        f"{JAX_ATE['velocity']:.4f}, limit "
+        f"{1.5 * JAX_ATE['velocity'] + 0.02:.4f}), RPE-t {rpe_t:.4f} m, RPE-r "
+        f"{rpe_r:.4f} deg, K1 launches {counts['velocity'][0]}, K2 "
+        f"launches {counts['velocity'][1]}")
+
+    # 3. no deskew, as a contrast
+    cn = cfg.replace(imu=dataclasses.replace(cfg.imu, use_imu=False))
+    _zero_launches()
+    res = driver.replay_odometry(clouds, cn, warmup=5, device=dev)
+    counts["none"] = _launches()
+    ates["none"], rpe_t, rpe_r = _accuracy("none", res.poses, gt)
+    log("lio", f"no deskew (contrast): {res.scans_per_sec:.3f} scans/s, ATE "
+        f"{ates['none']:.4f} m (JAX {JAX_ATE['none']:.4f}), RPE-t "
+        f"{rpe_t:.4f} m, RPE-r {rpe_r:.4f} deg")
+    with open(os.path.join(out_dir, "lio.json"), "w") as f:
+        json.dump({"ate_m": ates, "jax_cpu_ate_m": JAX_ATE,
+                   "imu_chain_ms": chain, "lio_poses": poses.tolist(),
+                   "gt": gt[:n].tolist()}, f)
+    for mode in ("lio", "velocity"):
+        bar = 1.5 * JAX_ATE[mode] + 0.02
+        check(ates[mode] <= bar, f"{mode}: ATE {ates[mode]} > {bar}")
+    return counts
+
+
+def phase_greedy(scans, gt, cfg, dev, vec_poses):
+    """The reference-faithful greedy feature selection on the first scans
+    of the main circuit, against the vectorized selection's run."""
+    import dataclasses
+
+    from lis_slam_torch.pipeline import driver
+
+    n = GREEDY_SCANS
+    c = cfg.replace(
+        feature=dataclasses.replace(cfg.feature, greedy_selection=True),
+        matching=dataclasses.replace(cfg.matching, gn_backend="pallas"))
+    _zero_launches()
+    res = driver.replay_odometry(scans[:n], c, warmup=2, device=dev)
+    counts = _launches()
+    ate, rpe_t, rpe_r = _accuracy("greedy", res.poses, gt)
+    gap = np.linalg.norm(res.poses[:, 3:] - vec_poses[:n, 3:], axis=1)
+    log("greedy", f"{n} scans: {res.scans_per_sec:.3f} scans/s, ATE "
+        f"{ate:.4f} m, RPE-t {rpe_t:.4f} m, RPE-r {rpe_r:.4f} deg, per-scan "
+        f"position gap to the vectorized run max {gap.max():.5f} m, K1 "
+        f"launches {counts[0]}, K2 launches {counts[1]}")
+    check(ate < ATE_MAX, f"greedy: ATE {ate} >= {ATE_MAX}")
+    check(gap.max() < GREEDY_GAP_M, f"greedy: {gap.max()} m from the "
+          "vectorized run")
+    check(counts[0] > 0 and counts[1] > 0, f"greedy: launches {counts}")
+    return {"greedy": counts}
 
 
 def main() -> int:
@@ -482,7 +765,11 @@ def main() -> int:
         k2 = phase_k2(inp, cfg, dev)
         del inp
         phase = "main"
-        launches = phase_main(scans, gt, cfg, dev, args.out)
+        launches, vec_poses = phase_main(scans, gt, cfg, dev, args.out)
+        phase = "lio"
+        launches.update(phase_lio(dev, args.out))
+        phase = "greedy"
+        launches.update(phase_greedy(scans, gt, cfg, dev, vec_poses))
     except BaseException as e:  # any failure: report and exit nonzero
         if isinstance(e, SystemExit) and isinstance(e.code, str):
             print(f"FAIL [{phase}]: {e.code}", file=sys.stderr)
@@ -490,12 +777,15 @@ def main() -> int:
             traceback.print_exc()
             print(f"FAIL [{phase}]: {e!r}", file=sys.stderr)
         return 1
-    kernels = [
-        dict(name="K1 exact kNN", route="cuda", source=K1_SOURCE,
-             replaces=K1_REPLACES, launches=launches["knn"], **k1),
-        dict(name="K2 fused GN accumulation", route="cuda", source=K2_SOURCE,
-             replaces=K2_REPLACES, launches=launches["gn"], **k2),
-    ]
+    kernels = []
+    for j, (name, source, replaces, res) in enumerate((
+            ("K1 exact kNN", K1_SOURCE, K1_REPLACES, k1),
+            ("K2 fused GN accumulation", K2_SOURCE, K2_REPLACES, k2))):
+        per_path = {p: c[j] for p, c in launches.items()}
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces,
+                            launches=sum(per_path.values()),
+                            launches_per_path=per_path, **res))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@
 src/core/laserProcessing.cpp calculateSmoothness :544-563,
 markOccludedPoints :568-605, extractFeatures :610-713).
 
-The reference-faithful greedy pick-and-suppress selection
-(`greedy=True` in the JAX package) is not ported yet and raises.
+Two selections: the vectorized local-extremum one (the production default)
+and, with `greedy=True`, the reference-faithful pick-and-suppress replica,
+batched over rings and sequential over the 6 sectors x (20 corner + 40
+surf) picks, with the JAX package's lowest-index argmax/argmin ties.
 """
 
 from __future__ import annotations
@@ -178,23 +180,110 @@ def _gather_flagged(xyz, inten, flag, src, capacity):
     return buf, ibuf, mask, torch.where(mask, sbuf, torch.full_like(sbuf, -1))
 
 
+def _sector_bounds(count: torch.Tensor, n_sectors: int):
+    """Start/end compacted indices per sector (reference sp/ep):
+    sp = (s*(6-j) + e*j)/6 with s = 4 and e = count - 6, floor division."""
+    s, e = 4, count - 6
+    return [(torch.div(s * (n_sectors - j) + e * j, n_sectors,
+                       rounding_mode="floor"),
+             torch.div(s * (n_sectors - 1 - j) + e * (j + 1), n_sectors,
+                       rounding_mode="floor") - 1)
+            for j in range(n_sectors)]
+
+
+def _suppress_neighbors(picked, col_gap, ind, col_diff_limit):
+    """Mark the +-5 compacted neighbors of `ind` (N,) in `picked` (N, H) as
+    picked, each direction stopping at the first column gap >
+    col_diff_limit (the reference's extractFeatures inner loops).
+    col_gap[:, i] = |col[i] - col[i-1]|."""
+    n, h = picked.shape
+    rows = torch.arange(n, device=ind.device)[:, None]
+    off = torch.arange(1, 6, device=ind.device)[None, :]
+    marks = torch.cat([picked, torch.zeros_like(picked[:, :1])], dim=1)
+    # forward j = ind+l against j-1; backward k = ind-l against k+1
+    for j, gap_at in ((ind[:, None] + off, ind[:, None] + off),
+                      (ind[:, None] - off, ind[:, None] - off + 1)):
+        inside = (j >= 0) & (j < h)
+        gap = col_gap[rows, torch.clamp(gap_at, 0, h - 1)]
+        alive = torch.cummin((inside & (gap <= col_diff_limit)).to(
+            torch.int32), dim=1).values.bool()
+        # dead steps write to the spare column h
+        marks[rows, torch.where(alive, j, torch.full_like(j, h))] = True
+    return marks[:, :h]
+
+
+def _select_rows_greedy(curv, picked, col, count, cfg: FeatureConfig):
+    """Greedy corner + surf selection over all rings at once (_extract_row
+    of the JAX package, vmapped there). Returns the (N, H) flags (corner,
+    sharp corner, surf cloud, sharp surf)."""
+    n, h = curv.shape
+    dev = curv.device
+    rows = torch.arange(n, device=dev)
+    idx = torch.arange(h, device=dev)[None, :]
+    col_gap = torch.abs(col - torch.roll(col, 1, dims=1))
+    corner = torch.zeros_like(picked)
+    sharp_corner = torch.zeros_like(picked)
+    sharp_surf = torch.zeros_like(picked)
+    in_any = torch.zeros_like(picked)
+    edge = curv > cfg.edge_threshold
+    flat = curv < cfg.surf_threshold
+    neg_big = torch.full_like(curv, -_BIG)
+
+    def pick(score, picked):
+        ind = torch.argmax(score, dim=1)  # first max, as jnp.argmax
+        hit = score[rows, ind] > -_BIG
+        new_picked = picked.clone()
+        new_picked[rows, ind] = True
+        new_picked = _suppress_neighbors(new_picked, col_gap, ind,
+                                         cfg.occlusion_col_diff)
+        return ind, hit, torch.where(hit[:, None], new_picked, picked)
+
+    for sp, ep in _sector_bounds(count, cfg.sectors_per_ring):
+        in_sector = (idx >= sp[:, None]) & (idx <= ep[:, None])
+        in_any = in_any | in_sector
+        # corners: descending curvature
+        for k in range(cfg.max_corners_per_sector):
+            score = torch.where(in_sector & ~picked & edge, curv, neg_big)
+            ind, hit, picked = pick(score, picked)
+            corner[rows, ind] |= hit
+            if k < cfg.max_sharp_corners_per_sector:
+                sharp_corner[rows, ind] |= hit
+        # surfs: ascending curvature (argmin as argmax of the negation,
+        # same first-index ties); the first picks are the sharp surfs
+        for k in range(cfg.max_sharp_surfs_per_sector * 4):
+            score = torch.where(in_sector & ~picked & flat, -curv, neg_big)
+            ind, hit, picked = pick(score, picked)
+            if k < cfg.max_sharp_surfs_per_sector:
+                sharp_surf[rows, ind] |= hit
+    return corner, sharp_corner, in_any & ~corner, sharp_surf
+
+
 def extract_features(ext: ExtractedCloud, cfg: FeatureConfig,
                      greedy: bool = False) -> FeatureClouds:
-    """Feature extraction over all rings with the vectorized local-extremum
-    selection (the production default)."""
-    if greedy:
-        raise NotImplementedError(
-            "greedy feature selection is not ported yet; use "
-            "FeatureConfig(greedy_selection=False)")
+    """Feature extraction over all rings: the vectorized local-extremum
+    selection (the production default), or with `greedy` the reference's
+    pick-and-suppress replica."""
     curv, picked, _valid = curvature_and_occlusion(ext, cfg)
-    corner_sel, sharp_sel, surf_f, ssurf_sel = (
-        _select_row_features_vectorized(curv, picked, ext.count, cfg))
-    corner_xyz, corner_int, corner_mask = _gather_indexed(
-        ext.xyz, ext.intensity, *corner_sel, cfg.max_corner_points)
-    sharp_xyz, _si, sharp_mask = _gather_indexed(
-        ext.xyz, ext.intensity, *sharp_sel, cfg.max_sharp_corner_points)
-    ssurf_xyz, _ssi, ssurf_mask = _gather_indexed(
-        ext.xyz, ext.intensity, *ssurf_sel, cfg.max_sharp_surf_points)
+    if greedy:
+        corner_f, sharp_f, surf_f, ssurf_f = _select_rows_greedy(
+            curv, picked, ext.col, ext.count, cfg)
+        corner_xyz, corner_int, corner_mask, _ = _gather_flagged(
+            ext.xyz, ext.intensity, corner_f, ext.src, cfg.max_corner_points)
+        sharp_xyz, _si, sharp_mask, _ = _gather_flagged(
+            ext.xyz, ext.intensity, sharp_f, ext.src,
+            cfg.max_sharp_corner_points)
+        ssurf_xyz, _ssi, ssurf_mask, _ = _gather_flagged(
+            ext.xyz, ext.intensity, ssurf_f, ext.src,
+            cfg.max_sharp_surf_points)
+    else:
+        corner_sel, sharp_sel, surf_f, ssurf_sel = (
+            _select_row_features_vectorized(curv, picked, ext.count, cfg))
+        corner_xyz, corner_int, corner_mask = _gather_indexed(
+            ext.xyz, ext.intensity, *corner_sel, cfg.max_corner_points)
+        sharp_xyz, _si, sharp_mask = _gather_indexed(
+            ext.xyz, ext.intensity, *sharp_sel, cfg.max_sharp_corner_points)
+        ssurf_xyz, _ssi, ssurf_mask = _gather_indexed(
+            ext.xyz, ext.intensity, *ssurf_sel, cfg.max_sharp_surf_points)
     surf_xyz, surf_int, surf_mask, surf_src = _gather_flagged(
         ext.xyz, ext.intensity, surf_f, ext.src, cfg.max_surf_points)
     return FeatureClouds(

@@ -21,7 +21,8 @@ import torch
 
 from ..config import SlamConfig
 from ..ops import features as feat_ops
-from ..ops import pretreatment, projection, scan_match, voxel
+from ..ops import deskew, pretreatment, projection, scan_match
+from ..ops import velocity_deskew, voxel
 from ..utils import se3
 
 
@@ -79,11 +80,23 @@ def init_state(cfg: SlamConfig, device: torch.device | str = "cpu"
 
 
 class ScanInput(NamedTuple):
-    """One padded raw scan. The IMU fields of the JAX ScanInput are optional
-    here; the gyro / velocity deskew that consumes them is not ported."""
+    """One padded raw scan on the device, with the fields of the JAX
+    ScanInput. The optional tensors default to None and the flags to
+    False, which the step reads as the JAX package's neutral zeros: no IMU
+    window (no gyro deskew), rotation-only deskew, no external guess, no
+    IMU attitude, no ego velocity."""
 
     points: torch.Tensor  # (P, 4) xyzi
     valid: torch.Tensor  # (P,) bool
+    # gyro window for the deskew (lidar frame), padded to M rows
+    imu_time: torch.Tensor | None = None  # (M,) absolute seconds
+    imu_gyro: torch.Tensor | None = None  # (M, 3)
+    imu_valid: torch.Tensor | None = None  # (M,) bool
+    scan_start: torch.Tensor | float = 0.0  # () absolute seconds
+    imu_accel: torch.Tensor | None = None  # (M, 3)
+    # body-frame velocity at scan start for the positional deskew term
+    # (findPosition, laserProcessing.cpp:402-425, zeroed by the reference)
+    deskew_vel: torch.Tensor | None = None  # (3,)
     # optional external initial guess (IMU preintegration / fusion odometry,
     # updateInitialGuess cascade, odomEstimationNode.cpp:297-419)
     init_guess: torch.Tensor | None = None  # (6,)
@@ -92,19 +105,34 @@ class ScanInput(NamedTuple):
     # (transformUpdate, odomEstimationNode.cpp:976-1006)
     imu_rpy: torch.Tensor | None = None  # (3,)
     imu_rpy_valid: bool = False
+    # body velocity + angular rate at scan time for the velocity front end
+    # (distortionAdjust.cpp:412-480), cfg.imu.deskew_mode == "velocity"
+    vel: torch.Tensor | None = None  # (3,)
+    ang_rate: torch.Tensor | None = None  # (3,)
+    vel_valid: bool = False
 
 
 def preprocess(scan: ScanInput, cfg: SlamConfig) -> feat_ops.FeatureClouds:
-    """Pretreatment -> projection -> extraction -> features. Deskew (gyro
-    or velocity, cfg.imu) is not ported yet and raises."""
-    if cfg.imu.deskew_mode == "velocity" or cfg.imu.use_imu:
-        raise NotImplementedError(
-            "deskew is not ported yet: run with use_imu=False and "
-            "deskew_mode='gyro'")
+    """Pretreatment -> deskew -> projection -> extraction -> features.
+
+    The deskew follows cfg.imu: "velocity" mode compensates with the
+    scan's ego velocity (dataPretreatNode.cpp:184-253), use_imu rotates by
+    the integrated gyro window (laserProcessing IMU path), else none."""
     pre = pretreatment.pretreat(scan.points, scan.valid, cfg.sensor)
+    pts = pre.points[:, :3]
+    if cfg.imu.deskew_mode == "velocity":
+        if scan.vel_valid:
+            pts = velocity_deskew.velocity_deskew(
+                pts, pre.rel_time, scan.ang_rate.to(pts), scan.vel.to(pts),
+                pre.valid)
+    elif cfg.imu.use_imu and scan.imu_time is not None:
+        info = deskew.integrate_gyro(scan.imu_time, scan.imu_gyro,
+                                     scan.imu_valid, scan.scan_start)
+        vel = None if scan.deskew_vel is None else scan.deskew_vel.to(pts)
+        pts = deskew.deskew_points(pts, pre.rel_time, info, pre.valid,
+                                   vel_body=vel)
     _img, ext = projection.project_and_extract(
-        pre.points[:, :3], pre.points[:, 3], pre.ring, pre.rel_time,
-        pre.valid, cfg.sensor)
+        pts, pre.points[:, 3], pre.ring, pre.rel_time, pre.valid, cfg.sensor)
     return feat_ops.extract_features(ext, cfg.feature,
                                      greedy=cfg.feature.greedy_selection)
 

@@ -103,3 +103,67 @@ def test_gn_kernel_matches_plain(dev, mode):
     for a, b in ((H, Hp), (g, gp)):
         scale = float(b.abs().max()) + 1e-9
         torch.testing.assert_close(a / scale, b / scale, atol=2e-4, rtol=0)
+
+
+def test_kernels_at_lio_shapes(dev):
+    """K1 and K2 on the LiDAR-inertial path's own clouds: the matched
+    clouds of a motion-distorted VLP-16 sweep (gyro-deskewed) against the
+    map that LioOdometry built on the card, lio_config at full width (as
+    chip_smoke.py phase lio). K1 equal to its plain version off exact
+    ties; K2 no further from the float64 plain version than twice the
+    float32 one (the circuit bound: real surf rows can have collinear
+    neighbours)."""
+    import dataclasses
+
+    from lis_slam_torch.config import lio_config
+    from lis_slam_torch.io import synthetic_torch
+    from lis_slam_torch.pipeline import driver, lio, odometry
+
+    cfg = lio_config()
+    cfg = cfg.replace(matching=dataclasses.replace(cfg.matching,
+                                                   gn_backend="pallas"))
+    raw, gt = synthetic_torch.render_sequence_device(
+        4, seed=5, device=dev, distorted=True, n_scan=16,
+        elevations=np.linspace(15.0, -15.0, 16))
+    R_ext = np.asarray(cfg.imu.extrinsic_rot)
+    system = lio.LioOdometry(cfg, dev)
+    for i, (p, _l, v) in enumerate(raw):
+        g, a, t = synthetic_torch.imu_rows(gt[i], gt[i + 1])
+        cloud = p[v].cpu().numpy()
+        pose = system.process_scan(cloud, t + i * 0.1, g @ R_ext,
+                                   a @ R_ext, i * 0.1)
+    sin = driver.pad_scan(cloud, cfg, dev, imu_time=t + 0.3, imu_gyro=g,
+                          scan_start=0.3)
+    qc, qc_mask, qs, qs_mask = odometry._matched_clouds(
+        odometry.preprocess(sin, cfg), cfg)
+    st, k = system.state, cfg.matching.nn_cache_k
+    T = se3.pose_to_matrix(pose)
+    for mode, q, q_mask, ref, ref_mask in (
+            ("corner", qc, qc_mask, st.map_corner, st.map_corner_mask),
+            ("surf", qs, qs_mask, st.map_surf, st.map_surf_mask)):
+        qw = se3.transform_points(T, q).contiguous()
+        d, i, cand = knn_cuda.knn(qw, ref, ref_mask, k=k, max_sq_dist=4.0)
+        dp, ip, _ = knn_cuda.knn_plain(qw, ref, ref_mask, k=k,
+                                       max_sq_dist=4.0)
+        assert torch.equal(torch.isinf(d), torch.isinf(dp))
+        fin = torch.isfinite(dp)
+        assert int(fin.sum()) > 0 and torch.equal(d[fin], dp[fin])
+        off = i != ip
+        assert torch.equal(d[off], dp[off])
+        args = (q.contiguous(), q_mask.contiguous(), cand,
+                (d < 4.0).contiguous(), torch.ones(q.shape[0], device=dev),
+                gn_cuda.pack_scalars(pose, cfg.matching, mode).contiguous())
+        H, g_, nv = gn_cuda.gn_partials(*args, mode, k)
+        Hp, gp, nvp = gn_cuda.gn_partials_plain(*args, mode, k)
+        Hd, gd, _ = gn_cuda.gn_partials_plain(
+            *(x.double() if x.is_floating_point() else x for x in args),
+            mode, k)
+        assert int(nvp) > 0 and int(nv) == int(nvp)
+
+        def err(a, b, ref_a, ref_b):
+            return max(float((a - ref_a).abs().max() / ref_a.abs().max()),
+                       float((b - ref_b).abs().max() / ref_b.abs().max()))
+
+        e_k = err(H.double(), g_.double(), Hd, gd)
+        e_p = err(Hp.double(), gp.double(), Hd, gd)
+        assert e_k <= max(2e-4, 2.0 * e_p), (mode, e_k, e_p)

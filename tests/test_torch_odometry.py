@@ -34,6 +34,7 @@ from lis_slam_tpu.pipeline import driver as jdriver, odometry as jodo
 from lis_slam_tpu.pipeline import trajectory as jtraj
 from lis_slam_torch.config import SensorConfig, SlamConfig
 from lis_slam_torch.pipeline import convert, driver, odometry, trajectory
+from lis_slam_torch.utils import se3_np
 
 H = 450
 N_SCANS = 8
@@ -144,13 +145,46 @@ def test_state_conversion_round_trip(jax_run):
         np.testing.assert_array_equal(back[f], arrays[f], err_msg=f)
 
 
-def test_unported_paths_raise():
-    _, tcfg = _cfgs()
-    scan = driver.pad_scan(np.zeros((10, 4), np.float32), tcfg)
-    for imu in (dict(use_imu=True), dict(deskew_mode="velocity")):
-        c = tcfg.replace(imu=dataclasses.replace(tcfg.imu, **imu))
-        with pytest.raises(NotImplementedError):
-            odometry.preprocess(scan, c)
+def test_unported_paths_raise(jax_run):
+    """Formerly the check that the IMU configurations raised; they are
+    ported now. From the same state, one motion-distorted scan through the
+    gyro deskew (use_imu, with the positional term) and through the
+    velocity front end (deskew_mode="velocity") must match the JAX step."""
+    _clouds, states, _outs, gt = jax_run
+    jcfg, tcfg = _cfgs()
+    s = synthetic.render_scan(synthetic.make_world(seed=5), gt[START],
+                              gt[START + 1], horizon=H, seed=50 + START)
+    cloud = s.points[s.valid]
+    start = 2.0
+    R0 = se3_np.pose_to_matrix(gt[START])[:3, :3]
+    vel = (R0.T @ (gt[START + 1][3:] - gt[START][3:]) / 0.1).astype(
+        np.float32)
+    for imu, kw, extra in (
+            (dict(use_imu=True),
+             dict(imu_time=s.imu_time + start, imu_gyro=s.gyro,
+                  scan_start=start),
+             dict(deskew_vel=vel)),
+            (dict(deskew_mode="velocity"),
+             dict(velocity=vel, angular_rate=s.gyro[0]), {})):
+        jc, tc = (c.replace(imu=dataclasses.replace(c.imu, **imu))
+                  for c in (jcfg, tcfg))
+        sin_j = jdriver.pad_scan(cloud, jc, **kw)._replace(
+            **{k: jnp.asarray(v) for k, v in extra.items()})
+        state_j = jodo.OdomState(**{f: jnp.asarray(v)
+                                    for f, v in states[START].items()})
+        _, out_j = jodo.odom_step_nodonate(state_j, sin_j, jc)
+        sin_t = driver.pad_scan(cloud, tc, **kw)._replace(
+            **{k: torch.from_numpy(v) for k, v in extra.items()})
+        _, out_t = odometry.odom_step(
+            convert.odom_state_from_numpy(states[START]), sin_t, tc)
+        assert out_t.is_keyframe == bool(out_j.is_keyframe), imu
+        p, pj = out_t.pose.numpy(), np.asarray(out_j.pose)
+        np.testing.assert_allclose(p[3:], pj[3:], atol=POS_ATOL, err_msg=imu)
+        np.testing.assert_allclose(p[:3], pj[:3], atol=ANG_ATOL, err_msg=imu)
+        # the deskew moved the points: the features differ from no deskew
+        fc = odometry.preprocess(sin_t, tc)
+        fc0 = odometry.preprocess(sin_t, tcfg)
+        assert not torch.equal(fc.surf_xyz, fc0.surf_xyz), imu
 
 
 def test_compact_scan_matches_bench_prep():
@@ -194,9 +228,11 @@ import numpy as np
 import lis_slam_torch
 from lis_slam_torch import config, labels
 from lis_slam_torch.io import synthetic, synthetic_torch
-from lis_slam_torch.ops import (cuda_build, features, gn_cuda, knn, knn_cuda,
-                                pretreatment, projection, scan_match, voxel)
-from lis_slam_torch.pipeline import convert, driver, odometry, trajectory
+from lis_slam_torch.imu import preintegration
+from lis_slam_torch.ops import (cuda_build, deskew, features, gn_cuda, knn,
+                                knn_cuda, pretreatment, projection, scan_match,
+                                velocity_deskew, voxel)
+from lis_slam_torch.pipeline import convert, driver, lio, odometry, trajectory
 from lis_slam_torch.utils import lin, se3, se3_np
 import torch
 assert not torch.backends.cuda.matmul.allow_tf32

@@ -55,6 +55,33 @@ def test_se3_batched(fn):
                jse3.quat_to_euler(jnp.asarray(q)), atol=2e-5)
 
 
+@pytest.mark.parametrize("scale", [0.0, 1e-7, 1e-3, 0.5, 2.5])
+def test_so3_exp_log_hat_vee(scale):
+    """Rodrigues and its log against the JAX package, across the small-angle
+    branch (theta^2 < 1e-12, where the far branch would be 0/0 and is
+    guarded) and large angles; finite in float64 too, as the host IMU chain
+    runs them."""
+    r = _rng()
+    w = (r.normal(size=(32, 3)) * scale).astype(np.float32)
+    w[0] = 0.0
+    pts = r.normal(size=(32, 5, 3)).astype(np.float32)
+    Rt = tse3.so3_exp(torch.from_numpy(w))
+    Rj = jse3.so3_exp(jnp.asarray(w))
+    _close(Rt, Rj, atol=1e-6)
+    _close(tse3.so3_log(Rt), jse3.so3_log(Rj), atol=2e-5)
+    _close(tse3.hat(torch.from_numpy(w)), jse3.hat(jnp.asarray(w)), atol=0)
+    _close(tse3.vee(tse3.hat(torch.from_numpy(w))), w, atol=0)
+    _close(tse3.apply_rotation(Rt, torch.from_numpy(pts)),
+           jse3.apply_rotation(Rj, jnp.asarray(pts)), atol=1e-5)
+    w64 = torch.from_numpy(w.astype(np.float64))
+    R64 = tse3.so3_exp(w64)
+    assert R64.dtype == torch.float64 and torch.isfinite(R64).all()
+    log64 = tse3.so3_log(R64)
+    assert torch.isfinite(log64).all()
+    if scale < 1.0:  # inside [0, pi): the log inverts the exp
+        _close(log64, w.astype(np.float64), atol=1e-9)
+
+
 def test_transform_points_and_slerp():
     r = _rng()
     p = _poses(r, 1)[0]
