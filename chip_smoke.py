@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (lis_slam_torch) on one NVIDIA GPU.
 
-Drives the port's front-end odometry step and its LiDAR-inertial path,
-with both hand-written CUDA kernels, through these phases (one or more
-lines each):
+Drives the port's front-end odometry step, its LiDAR-inertial path and
+the full SLAM system, with both hand-written CUDA kernels, through these
+phases (one or more lines each):
 
   1. device - torch and CUDA versions, the card's name and power limit;
   2. build  - nvcc builds csrc/knn.cu (K1, exact kNN) and csrc/gn.cu (K2,
@@ -28,7 +28,18 @@ lines each):
               shapes on the LIO map;
   7. greedy - the first 10 scans of the main circuit with the
               reference-faithful greedy feature selection, against the
-              vectorized selection's run.
+              vectorized selection's run;
+  8. slam   - the full SLAM system (pipeline/slam.py SemanticSlam: front
+              end, semantic refinement, submaps, EPSC loop closure, ICP
+              verification, pose graph) on the JAX bench's plaza lap
+              (bench.py:123-258): 100 HDL-64 scans of the exactly periodic
+              10 m circle plus 40 past the closure on a second noise
+              render, rendered on the card, ground-truth labels, the
+              bench's yaw drift injected through pose_hook, default
+              SlamConfig with gn_backend "pallas"; the same run again,
+              untimed, with its host syncs counted by stage; then K1 and
+              K2 at the back end's shapes against their plain versions,
+              and the pose-graph LM on the card and on the host.
 
 Then one JSON line with each kernel's launches (in all, and per path),
 error against its plain version and times, and last the device JSON line.
@@ -71,6 +82,15 @@ JAX_ATE = {"lio": 0.7513362695843023, "velocity": 0.3204856384483959,
            "none": 0.3534227909847982}
 GREEDY_SCANS = 10
 GREEDY_GAP_M = 0.1  # per-scan position vs the vectorized selection
+SLAM_LAP = 100  # scans per plaza lap (bench.py:133)
+SLAM_EXTRA = 40  # scans past the closure, second noise render (:199)
+SLAM_WARMUP = 10
+# the JAX package's corrected ATE on the slam phase's sequence, on a CPU
+# (scripts/full_slam_accuracy_bars.py: numpy renderer, gn_backend "xla",
+# aligned ATE; raw 0.1521 m, 10 submaps, 6 loop factors, 47 keyframes).
+# The card's renderer draws other noise over the same geometry: a run may
+# reach 1.5 x this + 0.02 m.
+JAX_SLAM_ATE = 0.027203119709521835
 
 
 def log(phase: str, msg: str) -> None:
@@ -718,6 +738,299 @@ def phase_greedy(scans, gt, cfg, dev, vec_poses):
     return {"greedy": counts}
 
 
+def _slam_drift_hook(pose6, idx):
+    """bench.py:216-221: a yaw error about the world origin growing 3e-4
+    rad per scan (~0.3% of travel, inside the 1% candidate gate)."""
+    from lis_slam_torch.utils import se3_np
+
+    th = 3e-4 * idx
+    c, s = np.cos(th), np.sin(th)
+    Td = np.eye(4)
+    Td[:2, :2] = [[c, -s], [s, c]]
+    return se3_np.matrix_to_pose(Td @ se3_np.pose_to_matrix(pose6))
+
+
+def _render_plaza(cfg, dev):
+    """The plaza lap of bench.py:145-201 on the card: SLAM_LAP scans, then
+    SLAM_EXTRA along the start of the lap on a second noise render; each
+    compacted as the bench's loader does, with its labels."""
+    import torch
+    from lis_slam_torch.io import synthetic, synthetic_torch
+    from lis_slam_torch.pipeline import driver
+
+    n = SLAM_LAP
+    world = synthetic_torch.to_device_world(synthetic_torch.plaza_world(),
+                                            dev)
+    gt = synthetic.circular_trajectory(
+        n + 1, radius=10.0, speed=2.0 * np.pi * 10.0 / (n * 0.1))
+    seq = []
+    for lap_seed, count in ((9, n), (11, SLAM_EXTRA)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(lap_seed)
+        for i in range(count):
+            p, lab, v = synthetic_torch.render_scan_device(
+                world, torch.as_tensor(gt[i]), gen)
+            seq.append((driver.compact_scan(p, v, cfg),
+                        driver.compact_labels(p, v, lab, cfg)))
+    gt_seq = np.concatenate([gt[:n], gt[:SLAM_EXTRA]])
+    return seq, gt_seq
+
+
+def _graph_lm_ms(system, device, reps=3):
+    """Host-clock ms of the final pose-graph LM solve (graph/pose_graph.py
+    optimize) with the run's final factors, on `device`."""
+    import torch
+    from lis_slam_torch.graph import pose_graph
+
+    gb = pose_graph.GraphBuilder(
+        system.cfg.graph, system.graph.max_nodes, system.graph.max_edges,
+        system.graph.max_priors, device=device)
+    gb.nodes = [n.copy() for n in system.graph.nodes]
+    gb.edges, gb.priors = list(system.graph.edges), list(system.graph.priors)
+    gb.optimize()  # warm-up
+    t = time.perf_counter()
+    for _ in range(reps):
+        gb.nodes = [n.copy() for n in system.graph.nodes]
+        gb.optimize()  # ends with the nodes' readback
+    return (time.perf_counter() - t) / reps * 1e3, gb.to_device().nodes.shape[0]
+
+
+def _check_slam_kernels(system, cfg, dev):
+    """K1 and K2 at the back end's shapes, against their plain versions:
+    K1 at k=1 (dynamic removal) on the local map with holes and on an
+    empty map; K1 bit-equal against the submap-sized targets (geometric
+    surf N 131072, the semantic registration's 3 x 32768 = 98304) at Q
+    8192; K2 with weights in [0.5, 2] at Q 8192. Returns the worst error
+    of each kernel (K1 distance, K2 scaled)."""
+    import torch
+    from lis_slam_torch.ops import gn_cuda, knn_cuda, voxel
+    from lis_slam_torch.utils import se3
+
+    worst_k1 = worst_k2 = 0.0
+    subs = system.collector.submaps
+    check(len(subs) >= 3, f"slam: {len(subs)} submaps")
+    prev, cur = subs[1], subs[2]
+    Ti = se3.transform_inverse(torch.as_tensor(
+        cur.pose_init.astype(np.float32), device=dev))
+    T = torch.as_tensor(cur.pose_init.astype(np.float32), device=dev)
+    q, _qm, _ = voxel.voxel_downsample(
+        se3.transform_points(Ti, cur.surf_xyz), cur.surf_mask,
+        cfg.submap.refine_surf_leaf, cfg.submap.matched_surf_capacity)
+    qw = se3.transform_points(T, q).contiguous()
+    sem = system.fstate.sem
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    holes = sem.surf_mask & (torch.rand(sem.surf_mask.shape, generator=gen,
+                                        device=dev) > 0.1)
+    t_sem = torch.cat([prev.class_xyz[c] for c in (0, 1, 2)]).contiguous()
+    t_sem_m = torch.cat([prev.class_mask[c] for c in (0, 1, 2)]).contiguous()
+    k = cfg.matching.nn_cache_k
+    cases = [
+        (f"dynamic removal Q{qw.shape[0]} N{sem.surf_pts.shape[0]} k1 nocap "
+         "holes", qw, sem.surf_pts, holes, 1, None),
+        (f"dynamic removal Q{qw.shape[0]} empty map k1 nocap", qw,
+         sem.surf_pts, torch.zeros_like(holes), 1, None),
+        (f"geo registration Q{qw.shape[0]} N{prev.surf_xyz.shape[0]} k{k} "
+         "cap4", qw, prev.surf_xyz, prev.surf_mask, k, 4.0),
+        (f"sem registration Q{qw.shape[0]} N{t_sem.shape[0]} k{k} cap4", qw,
+         t_sem, t_sem_m, k, 4.0),
+    ]
+    for name, qq, ref, mask, kk, cap in cases:
+        err, _ms_k, _ms_p = _check_knn("slam K1", name, qq, ref, mask, kk, cap)
+        d, _i, _x = knn_cuda.knn(qq, ref, mask, k=kk, max_sq_dist=cap)
+        dp, _ip, _xp = knn_cuda.knn_plain(qq, ref, mask, k=kk,
+                                          max_sq_dist=cap)
+        check(bool(torch.equal(d, dp)), f"slam K1 {name}: not bit-equal")
+        if not bool(mask.any()):
+            check(bool(torch.isinf(d).all()),
+                  f"slam K1 {name}: empty map gave a finite distance")
+        worst_k1 = max(worst_k1, err)
+
+    # K2 with non-unit weights at the refinement's Q = 8192
+    n_q, n_map = cfg.submap.matched_surf_capacity, 65536
+    buf, buf_mask, world, rng = _gn_world("surf", n_map, dev, 11)
+    ref, _, ref_mask = voxel.voxel_merge_aged(
+        buf, buf_mask, torch.zeros_like(buf),
+        torch.zeros(n_map, dtype=torch.int32, device=dev),
+        torch.zeros_like(buf_mask), 0, 1, cfg.voxel.mapping_surf_leaf, n_map)
+    pose_true = torch.tensor([0.01, -0.02, 0.08, 0.5, -0.3, 0.05], device=dev)
+    sel = world[rng.integers(0, len(world), n_q)]
+    sel = sel + rng.normal(0, 0.02, sel.shape).astype(np.float32)
+    qs = se3.transform_points(se3.transform_inverse(se3.pose_to_matrix(
+        pose_true)), torch.from_numpy(sel).to(dev)).contiguous()
+    pose = pose_true + torch.tensor([0.002, -0.001, 0.004, 0.05, -0.03, 0.01],
+                                    device=dev)
+    d, _, cand = knn_cuda.knn(
+        se3.transform_points(se3.pose_to_matrix(pose), qs).contiguous(), ref,
+        ref_mask, k=k, max_sq_dist=4.0)
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, n_q).astype(np.float32)).to(dev)
+    args = (qs, torch.from_numpy(rng.uniform(size=n_q) > 0.1).to(dev), cand,
+            (d < 4.0).contiguous(), w,
+            gn_cuda.pack_scalars(pose, cfg.matching, "surf").contiguous(),
+            "surf", k)
+    H, g, nv = gn_cuda.gn_partials(*args)
+    Hp, gp, nvp = gn_cuda.gn_partials_plain(*args)
+    torch.cuda.synchronize()
+    eh, eg = _scaled_err(H, g, Hp, gp)
+    log("slam K2", f"surf Q{n_q} N{n_map} k{k}, weights in [0.5, 2]: n_valid "
+        f"{int(nv)} (plain {int(nvp)}), scaled err H {eh:.3g} g {eg:.3g}")
+    check(int(nvp) > n_q // 4, f"slam K2: only {int(nvp)} valid rows")
+    check(int(nv) == int(nvp), "slam K2: n_valid differs")
+    check(eh <= GN_ATOL and eg <= GN_ATOL,
+          f"slam K2 weighted: scaled error H {eh:.3g} g {eg:.3g}")
+    worst_k2 = max(eh, eg)
+    return worst_k1, worst_k2
+
+
+# A synchronizing CUDA call is charged to the innermost of these functions
+# on its Python stack.
+SYNC_STAGES = {
+    "_odom_step_impl": "front end", "refine_step": "refine",
+    "compute_descriptors": "descriptors", "select_descriptor": "descriptors",
+    "slam_step": "keyframe step, other", "gate": "loop scoring",
+    "score_async": "loop scoring", "result_to_candidate": "loop scoring",
+    "_verify_loop_device": "verify ICP",
+    "_register_submaps_dispatch": "registration",
+    "optimize_async": "LM", "add_keyframe": "submap close",
+    "_on_submap": "submap close", "_consume": "window fetch",
+}
+
+
+def _slam_syncs(cfg, seq, dev):
+    """Host syncs of a SemanticSlam run over `seq` (scan 0 through
+    flush_pipeline, drift hook on, as the timed run), by stage; every
+    synchronizing CUDA call warns once under the sync debug mode."""
+    import torch
+    from lis_slam_torch.pipeline import slam
+
+    counts: dict[str, int] = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        f, stage = sys._getframe(1), "other"
+        while f is not None:
+            if f.f_code.co_name in SYNC_STAGES:
+                stage = SYNC_STAGES[f.f_code.co_name]
+                break
+            f = f.f_back
+        counts[stage] = counts.get(stage, 0) + 1
+
+    system = slam.SemanticSlam(cfg, pose_hook=_slam_drift_hook, device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i, (scan, labels) in enumerate(seq):
+                system.process_scan(scan, gt_labels=labels, timestamp=i * 0.1)
+            system.flush_pipeline()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1])), system
+
+
+def phase_slam(dev, out_dir):
+    """SemanticSlam at full width on the plaza lap with injected drift;
+    accuracy against the JAX package's bar, then the kernels at the back
+    end's shapes and the LM on the card vs the host."""
+    import dataclasses
+
+    import torch
+    from lis_slam_torch.config import SensorConfig, SlamConfig
+    from lis_slam_torch.pipeline import slam, trajectory
+
+    base = SlamConfig().replace(sensor=SensorConfig(max_raw_points=65536))
+    cfg = base.replace(matching=dataclasses.replace(base.matching,
+                                                    gn_backend="pallas"))
+    t = time.perf_counter()
+    seq, gt = _render_plaza(cfg, dev)
+    torch.cuda.synchronize()
+    log("slam", f"rendered and compacted {len(seq)} plaza scans on the card "
+        f"in {time.perf_counter() - t:.2f} s; points/scan "
+        f"{int(seq[0][0].valid.sum())} of {cfg.sensor.max_raw_points}")
+
+    warm = slam.SemanticSlam(cfg, pose_hook=_slam_drift_hook, device=dev)
+    for i in range(SLAM_WARMUP):
+        warm.process_scan(seq[i][0], gt_labels=seq[i][1], timestamp=i * 0.1)
+    warm.finish()
+    del warm
+
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    system = slam.SemanticSlam(cfg, pose_hook=_slam_drift_hook, device=dev)
+    system.process_scan(seq[0][0], gt_labels=seq[0][1], timestamp=0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, len(seq)):
+        system.process_scan(seq[i][0], gt_labels=seq[i][1],
+                            timestamp=i * 0.1)
+    system.flush_pipeline()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = system.finish()
+    counts = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(seq)
+    check(res.poses.shape == (n, 6) and bool(np.isfinite(res.poses).all()),
+          "slam: corrected poses not finite (n, 6)")
+    gt_rel = trajectory.relative_to_first(gt)
+    ate = trajectory.ate_rmse(res.poses, gt_rel, align=True)
+    raw = trajectory.ate_rmse(res.raw_poses, gt_rel, align=True)
+    rpe_t, rpe_r = trajectory.rpe(res.poses, gt_rel)
+    stages = {k: round(v["total_ms"], 3)
+              for k, v in system.timer.report().items()}
+    bar = 1.5 * JAX_SLAM_ATE + 0.02
+    log("slam", f"{(n - 1) / wall:.3f} scans/s ({n - 1} timed scans through "
+        f"flush_pipeline, {wall:.3f} s); ATE aligned corrected {ate:.4f} m, "
+        f"raw {raw:.4f} m (JAX CPU corrected {JAX_SLAM_ATE:.4f}, limit "
+        f"{bar:.4f}); RPE-t {rpe_t:.4f} m, RPE-r {rpe_r:.4f} deg; submaps "
+        f"{res.n_submaps}, loop factors {res.n_loops}, keyframes "
+        f"{len(system.keyframes)}; K1 launches {counts[0]}, K2 launches "
+        f"{counts[1]}; peak device memory {peak} bytes")
+    log("slam", "stage totals ms: " + json.dumps(stages))
+
+    # host syncs by stage, over a second untimed run of the whole lap
+    syncs, s2 = _slam_syncs(cfg, seq, dev)
+    n_kf = len(s2.keyframes)
+    runs = {k: v.count for k, v in s2.timer.stats.items()}
+    log("slam", f"host syncs over the {n} scans through flush_pipeline, by "
+        f"stage: {json.dumps(syncs)}; {n_kf} keyframes, "
+        f"{runs.get('loop_verify', 0)} verifications, "
+        f"{runs.get('submap_register', 0)} registrations, "
+        f"{runs.get('graph_optimize', 0)} LM solves; front end "
+        f"{syncs.get('front end', 0) / n:.1f} per scan, the rest "
+        f"{(sum(syncs.values()) - syncs.get('front end', 0)) / max(n_kf, 1):.1f}"
+        " per keyframe")
+    check(runs.get("loop_verify", 0) > 0 and runs.get("graph_optimize", 0) > 0,
+          f"slam: the sync count saw no verification or LM solve ({runs})")
+    del s2
+
+    lm = {"card": _graph_lm_ms(system, dev),
+          "host": _graph_lm_ms(system, torch.device("cpu"))}
+    log("slam", f"pose-graph LM, final graph ({len(system.graph.nodes)} nodes "
+        f"padded to {lm['card'][1]}, {len(system.graph.edges)} edges), "
+        f"float32: card {lm['card'][0]:.3f} ms, host {lm['host'][0]:.3f} ms "
+        f"(the run solved on {system.graph.device})")
+    with open(os.path.join(out_dir, "slam.json"), "w") as f:
+        json.dump({"ate_corrected_m": ate, "ate_raw_m": raw,
+                   "jax_cpu_ate_corrected_m": JAX_SLAM_ATE,
+                   "rpe_t_m": rpe_t, "rpe_r_deg": rpe_r,
+                   "scans_per_s": (n - 1) / wall, "stages_total_ms": stages,
+                   "n_submaps": res.n_submaps, "loop_factors": res.n_loops,
+                   "keyframes": len(system.keyframes), "peak_bytes": peak,
+                   "lm_ms": {d: v[0] for d, v in lm.items()},
+                   "syncs_by_stage": syncs, "poses": res.poses.tolist(),
+                   "raw_poses": res.raw_poses.tolist(),
+                   "gt": gt_rel.tolist()}, f)
+    check(res.n_loops >= 1, "slam: no loop factor")
+    check(ate < raw, f"slam: corrected ATE {ate} >= raw {raw}")
+    check(ate <= bar, f"slam: corrected ATE {ate} > {bar}")
+    check(counts[0] > 0 and counts[1] > 0, f"slam: launches {counts}")
+    err = _check_slam_kernels(system, cfg, dev)
+    return {"slam": counts}, err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=60)
@@ -770,6 +1083,12 @@ def main() -> int:
         launches.update(phase_lio(dev, args.out))
         phase = "greedy"
         launches.update(phase_greedy(scans, gt, cfg, dev, vec_poses))
+        del scans
+        phase = "slam"
+        slam_launches, (k1_slam, k2_slam) = phase_slam(dev, args.out)
+        launches.update(slam_launches)
+        k1["max_abs_err"] = max(k1["max_abs_err"], k1_slam)
+        k2["max_abs_err"] = max(k2["max_abs_err"], k2_slam)
     except BaseException as e:  # any failure: report and exit nonzero
         if isinstance(e, SystemExit) and isinstance(e.code, str):
             print(f"FAIL [{phase}]: {e.code}", file=sys.stderr)

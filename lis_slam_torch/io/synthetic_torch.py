@@ -157,6 +157,29 @@ def imu_rows(pose6: np.ndarray, next_pose6: np.ndarray | None,
             imu_t.astype(np.float32))
 
 
+def plaza_world() -> synthetic.World:
+    """The revisiting plaza of the JAX bench's full-SLAM section
+    (bench.py:145-161): 14 buildings on a 30 m ring around (0, 10) and 24
+    poles at 17-22 m, from rng seed 9. The lap circular_trajectory(n + 1,
+    radius=10, speed=2 pi 10 / (n 0.1)) closes exactly after n scans."""
+    rng = np.random.default_rng(9)
+    boxes, poles = [], []
+    for k in range(14):
+        ang = 2 * np.pi * k / 14
+        cx, cy = 30.0 * np.cos(ang), 10.0 + 30.0 * np.sin(ang)
+        w, d, h = rng.uniform(6, 10), rng.uniform(6, 10), rng.uniform(5, 15)
+        boxes.append([cx - w / 2, cy - d / 2, 0, cx + w / 2, cy + d / 2, h])
+    for k in range(24):
+        ang = 2 * np.pi * k / 24 + 0.1
+        r = rng.uniform(17, 22)
+        poles.append([r * np.cos(ang), 10.0 + r * np.sin(ang),
+                      rng.uniform(0.1, 0.2), rng.uniform(3, 7)])
+    return synthetic.World(
+        boxes=np.asarray(boxes),
+        box_labels=np.full(14, synthetic.LBL_BUILDING, np.int32),
+        poles=np.asarray(poles))
+
+
 def render_sequence_device(n_scans: int, seed: int = 5, radius: float = 60.0,
                            speed: float = 8.0,
                            device: torch.device | str = "cpu",

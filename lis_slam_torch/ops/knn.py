@@ -6,10 +6,16 @@ This is the plain version of the hand-written CUDA kernel in
 ops/knn_cuda.py and its oracle. Distances are the exact
 (q-r)^2 summed x, y, z in that order — not |q|^2+|r|^2-2qr, which loses
 ~1e-3 to cancellation — so kernel and plain version pick the same
-neighbors. The voxel-hash variant of the JAX module is not ported yet.
+neighbors.
+
+`VoxelHashMap` / `build_hash` / `knn_hash` are the spatial-hash k-NN of
+the JAX module (bucket-sorted points, 27-cell probe), used by the loop
+verification ICP. Plain PyTorch: the JAX package has no kernel for it.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -55,3 +61,92 @@ def knn_bruteforce(query: torch.Tensor, ref: torch.Tensor,
     best_i = torch.where(torch.isinf(best_d), torch.full_like(best_i, -1),
                          best_i)
     return best_d, best_i.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Voxel-hash variant
+# ---------------------------------------------------------------------------
+
+_INF = 3e38  # the JAX module's sentinel distance for empty probe slots
+_U32 = 0xFFFFFFFF
+
+
+class VoxelHashMap(NamedTuple):
+    """Bucket-sorted point store for the 27-cell k-NN probe."""
+
+    points: torch.Tensor  # (N, 3) sorted by bucket hash
+    point_id: torch.Tensor  # (N,) int64 original index into the map buffer
+    bucket_start: torch.Tensor  # (T+1,) CSR offsets into the sorted arrays
+    cell_size: float
+
+    @property
+    def table_size(self) -> int:
+        return self.bucket_start.shape[0] - 1
+
+
+def _hash_cells(cx, cy, cz, table_size: int) -> torch.Tensor:
+    """The JAX module's uint32 spatial hash of int32 cell coords, in int64:
+    each coordinate wraps to 32 bits as `astype(uint32)` does, and each
+    product is masked back to 32 bits (uint32 multiplication wraps)."""
+    def term(c, mult):
+        return ((c.to(torch.int64) & _U32) * mult) & _U32
+
+    h = (term(cx, 73856093) ^ term(cy, 19349663) ^ term(cz, 83492791))
+    return torch.remainder(h, table_size)
+
+
+def build_hash(points: torch.Tensor, mask: torch.Tensor,
+               cell_size: float = 1.0, table_size: int = 1 << 16
+               ) -> VoxelHashMap:
+    """Sort the masked points by cell hash (stable, padding last) and
+    record each bucket's start."""
+    cells = torch.floor(points / cell_size).to(torch.int32)
+    h = _hash_cells(cells[:, 0], cells[:, 1], cells[:, 2], table_size)
+    h = torch.where(mask, h, torch.full_like(h, table_size))
+    h_sorted, order = torch.sort(h, stable=True)
+    starts = torch.searchsorted(
+        h_sorted, torch.arange(table_size + 1, device=points.device))
+    return VoxelHashMap(points=points[order], point_id=order,
+                        bucket_start=starts, cell_size=float(cell_size))
+
+
+_NEIGHBOR_OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                     for dz in (-1, 0, 1)]
+
+
+def _sum_sq3(diff: torch.Tensor) -> torch.Tensor:
+    """sum(diff^2) over the last axis of size 3 as the JAX package's CPU
+    program evaluates it: x^2, then two fused multiply-adds (emulated in
+    float64: a float32 product is exact there, so only the sum rounds).
+    A plain ((x^2 + y^2) + z^2) differs in the last bit for ~20% of
+    points, which reorders near-ties."""
+    d = diff.double()
+    acc = (d[..., 0] * d[..., 0]).float()
+    acc = (d[..., 1] * d[..., 1] + acc.double()).float()
+    return (d[..., 2] * d[..., 2] + acc.double()).float()
+
+
+def knn_hash(query: torch.Tensor, hmap: VoxelHashMap, k: int = 5,
+             bucket_cap: int = 16):
+    """k-NN among the first `bucket_cap` points of each of the 27 buckets
+    around each query's cell (exact within cell_size up to bucket
+    occupancy). Returns (sq_dists (Q,k) ascending, original indices (Q,k)
+    int64); empty slots hold d = 3e38 and index point_id[0], as in the JAX
+    module. Among equal distances the lower probe slot wins (lax.top_k)."""
+    q_n = query.shape[0]
+    dev = query.device
+    qcell = torch.floor(query / hmap.cell_size).to(torch.int32)
+    offs = torch.tensor(_NEIGHBOR_OFFSETS, dtype=torch.int32, device=dev)
+    cc = qcell[:, None, :] + offs[None, :, :]  # (Q, 27, 3)
+    hb = _hash_cells(cc[..., 0], cc[..., 1], cc[..., 2], hmap.table_size)
+    start = hmap.bucket_start[hb]
+    end = hmap.bucket_start[hb + 1]
+    sl = start[..., None] + torch.arange(bucket_cap, device=dev)
+    ok = sl < end[..., None]
+    ci = torch.where(ok, sl, torch.zeros_like(sl)).reshape(q_n, -1)
+    cv = ok.reshape(q_n, -1)
+    d = _sum_sq3(hmap.points[ci] - query[:, None, :])
+    d = torch.where(cv, d, torch.full_like(d, _INF))
+    d, sel = torch.sort(d, dim=1, stable=True)
+    idx = torch.gather(ci, 1, sel[:, :k])
+    return d[:, :k], hmap.point_id[idx]

@@ -74,10 +74,12 @@ def _dest(sel: torch.Tensor, seg: torch.Tensor, capacity: int):
 
 
 def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf: float,
-                     capacity: int):
+                     capacity: int, payloads: tuple = ()):
     """One point per voxel: the FIRST in input order (stable sort on the
-    key). Returns (points (C,3), mask (C,), count). The centroid and
-    payload variants of the JAX package are not ported."""
+    key). Returns (points (C,3), mask (C,), count[, payloads (C,) ...]):
+    each per-point float column of `payloads` comes out aligned with the
+    kept points (0 in empty slots). The centroid variant of the JAX package
+    is not ported."""
     h = _masked_key(_voxel_key(points, mask, leaf), mask)
     hs, order = torch.sort(h, stable=True)
     is_new, _ = _run_starts(hs)
@@ -85,18 +87,23 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf: float,
     dest = _dest(is_new, seg, capacity)
     k = torch.clamp(torch.sum(is_new.to(torch.int32)), max=capacity)
     out_mask = torch.arange(capacity, device=points.device) < k
-    buf = torch.zeros((capacity + 1, 3), dtype=points.dtype,
+    cols = torch.cat([points] + [p.to(points.dtype)[:, None]
+                                 for p in payloads], dim=1)
+    buf = torch.zeros((capacity + 1, cols.shape[1]), dtype=points.dtype,
                       device=points.device)
-    buf[dest] = points[order]
-    out = torch.where(out_mask[:, None], buf[:capacity],
+    buf[dest] = cols[order]
+    buf = torch.where(out_mask[:, None], buf[:capacity],
                       torch.zeros_like(buf[:capacity]))
-    return out, out_mask, k
+    return (buf[:, :3], out_mask, k) + tuple(
+        buf[:, 3 + i] for i in range(len(payloads)))
 
 
 def voxel_merge_aged(new_points: torch.Tensor, new_mask: torch.Tensor,
                      map_points: torch.Tensor, map_age: torch.Tensor,
                      map_mask: torch.Tensor, kf_index: int, window: int,
-                     leaf: float, capacity: int, anchor: str = "first"):
+                     leaf: float, capacity: int, anchor: str = "first",
+                     new_flag: torch.Tensor | None = None,
+                     map_flag: torch.Tensor | None = None):
     """Incremental sliding-window map update (merge-last-K-keyframes +
     voxel-downsample semantics, odomEstimationNode.cpp:185-207): a voxel is
     in the map iff some keyframe in the last `window` observed it.
@@ -106,7 +113,12 @@ def voxel_merge_aged(new_points: torch.Tensor, new_mask: torch.Tensor,
     a key run the LAST element is the anchored map point when one exists
     (anchor="first") and the FIRST is the newest observation
     (anchor="newest", and the age either way). The output stays
-    morton-ordered. Returns (points (C,3), age (C,), mask (C,))."""
+    morton-ordered.
+
+    With `new_flag`/`map_flag`, a per-point bool rides the merge and
+    follows its POINT (the anchored one), e.g. the dynamic-class flag of
+    the semantic local map. Returns (points (C,3), age (C,), mask (C,)
+    [, flag (C,)])."""
     if anchor not in ("first", "newest"):
         raise ValueError(f"anchor must be 'first'|'newest', got {anchor!r}")
     dev = new_points.device
@@ -131,7 +143,12 @@ def voxel_merge_aged(new_points: torch.Tensor, new_mask: torch.Tensor,
     out_age[_dest(is_first, seg, capacity)] = age[order]
     out_age = torch.where(out_mask, out_age[:capacity],
                           torch.full_like(out_age[:capacity], -(10**9)))
-    return out_pts, out_age, out_mask
+    if new_flag is None:
+        return out_pts, out_age, out_mask
+    flag = torch.cat([new_flag, map_flag])
+    out_flag = torch.zeros((capacity + 1,), dtype=torch.bool, device=dev)
+    out_flag[_dest(is_anchor, seg, capacity)] = flag[order]
+    return out_pts, out_age, out_mask, out_flag[:capacity] & out_mask
 
 
 def compact_masked(points: torch.Tensor, mask: torch.Tensor, capacity: int):

@@ -118,18 +118,25 @@ class VelocityStream:
         return lin, ang
 
 
+def _loader_keep(points: torch.Tensor, valid: torch.Tensor,
+                 cfg: SlamConfig) -> torch.Tensor:
+    """The rows the benchmark's loader keeps: valid, on a ring that
+    cfg.sensor.downsample_rate does not drop."""
+    from ..ops import pretreatment
+
+    ring, ok = pretreatment.compute_ring(points, valid, cfg.sensor.n_scan)
+    return ok & (ring % cfg.sensor.downsample_rate == 0)
+
+
 def compact_scan(points: torch.Tensor, valid: torch.Tensor, cfg: SlamConfig,
                  capacity: int | None = None) -> odometry.ScanInput:
     """The benchmark's data-loader step (bench.py `prep`), on the points'
     device: drop the rings that cfg.sensor.downsample_rate discards anyway
     and pack the rest to the front of a `capacity`-row buffer (default
     cfg.sensor.max_raw_points). points (P, 4) xyzi, valid (P,)."""
-    from ..ops import pretreatment
-
     cap = cfg.sensor.max_raw_points if capacity is None else capacity
     dev = points.device
-    ring, ok = pretreatment.compute_ring(points, valid, cfg.sensor.n_scan)
-    keep = ok & (ring % cfg.sensor.downsample_rate == 0)
+    keep = _loader_keep(points, valid, cfg)
     pos = torch.cumsum(keep.to(torch.int32), 0) - 1
     dest = torch.where(keep & (pos < cap), pos,
                        torch.full_like(pos, cap)).to(torch.int64)
@@ -138,6 +145,16 @@ def compact_scan(points: torch.Tensor, valid: torch.Tensor, cfg: SlamConfig,
     cnt = torch.clamp(torch.sum(keep.to(torch.int32)), max=cap)
     return odometry.ScanInput(points=buf[:cap],
                               valid=torch.arange(cap, device=dev) < cnt)
+
+
+def compact_labels(points: torch.Tensor, valid: torch.Tensor,
+                   labels: torch.Tensor, cfg: SlamConfig,
+                   capacity: int | None = None) -> np.ndarray:
+    """The per-point labels of compact_scan's rows, in its order, as the
+    host int32 array SemanticSlam.process_scan takes (`gt_labels`)."""
+    cap = cfg.sensor.max_raw_points if capacity is None else capacity
+    keep = _loader_keep(points, valid, cfg)
+    return labels[keep][:cap].to(torch.int32).cpu().numpy()
 
 
 def _sync(device: torch.device) -> None:

@@ -6,6 +6,8 @@ scan2SubMapOptimization -> transformUpdate -> saveKeyFrames).
 `odom_step(state, scan, cfg) -> (state, out)` is plain Python over tensors
 on the scan's device: the keyframe insert is a host branch instead of a
 `lax.cond`, and the solver loop lives in ops/scan_match.scan_to_map.
+`_odom_step_impl` also returns the scan's feature clouds and extracted
+cloud, which the full-SLAM step (pipeline/slam.py) reuses.
 
 State layout (fixed capacity, mask-padded), as in the JAX package: the
 sliding keyframe ring, the merged morton-ordered corner/surf maps with
@@ -112,12 +114,14 @@ class ScanInput(NamedTuple):
     vel_valid: bool = False
 
 
-def preprocess(scan: ScanInput, cfg: SlamConfig) -> feat_ops.FeatureClouds:
+def preprocess(scan: ScanInput, cfg: SlamConfig, return_ext: bool = False):
     """Pretreatment -> deskew -> projection -> extraction -> features.
 
     The deskew follows cfg.imu: "velocity" mode compensates with the
     scan's ego velocity (dataPretreatNode.cpp:184-253), use_imu rotates by
-    the integrated gyro window (laserProcessing IMU path), else none."""
+    the integrated gyro window (laserProcessing IMU path), else none.
+    Returns the FeatureClouds, and with `return_ext` also the extracted
+    cloud (its `src` column maps grid slots to raw points)."""
     pre = pretreatment.pretreat(scan.points, scan.valid, cfg.sensor)
     pts = pre.points[:, :3]
     if cfg.imu.deskew_mode == "velocity":
@@ -133,8 +137,9 @@ def preprocess(scan: ScanInput, cfg: SlamConfig) -> feat_ops.FeatureClouds:
                                    vel_body=vel)
     _img, ext = projection.project_and_extract(
         pts, pre.points[:, 3], pre.ring, pre.rel_time, pre.valid, cfg.sensor)
-    return feat_ops.extract_features(ext, cfg.feature,
-                                     greedy=cfg.feature.greedy_selection)
+    fc = feat_ops.extract_features(ext, cfg.feature,
+                                   greedy=cfg.feature.greedy_selection)
+    return (fc, ext) if return_ext else fc
 
 
 def _insert_keyframe(state: OdomState, fc: feat_ops.FeatureClouds,
@@ -219,7 +224,14 @@ def odom_step(state: OdomState, scan: ScanInput,
     from one state). The step waits on the device several times per GN
     iteration (the 6x6 solve and the loop control run on the host) and a
     few times per scan for the keyframe bookkeeping."""
-    fc = preprocess(scan, cfg)
+    state, out, _fc, _ext = _odom_step_impl(state, scan, cfg)
+    return state, out
+
+
+def _odom_step_impl(state: OdomState, scan: ScanInput, cfg: SlamConfig):
+    """odom_step, returning (state, out, feature clouds, extracted
+    cloud)."""
+    fc, ext = preprocess(scan, cfg, return_ext=True)
 
     # ---- initial guess cascade (updateInitialGuess :297-419):
     # external guess > constant velocity > hold ----
@@ -275,4 +287,4 @@ def odom_step(state: OdomState, scan: ScanInput,
     out = OdomOutput(pose=pose, is_keyframe=is_kf, converged=gn.converged,
                      degenerate=gn.degenerate, n_valid=gn.n_valid,
                      iterations=gn.it)
-    return state, out
+    return state, out, fc, ext

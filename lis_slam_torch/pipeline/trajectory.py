@@ -1,6 +1,7 @@
-"""Trajectory metrics (port of lis_slam_tpu/pipeline/trajectory.py, in
-numpy over utils/se3_np): re-expression relative to the first pose, ATE
-RMSE, RPE."""
+"""Trajectory export and metrics (port of lis_slam_tpu/pipeline/
+trajectory.py, in numpy over utils/se3_np): KITTI export (the reference's
+transformFusion writer, subMapOptmizationNode.cpp:5079-5179),
+re-expression relative to the first pose, ATE RMSE, RPE."""
 
 from __future__ import annotations
 
@@ -12,6 +13,21 @@ from ..utils import se3_np
 def _to_mats(poses6: np.ndarray) -> np.ndarray:
     return np.stack([se3_np.pose_to_matrix(p)
                      for p in np.asarray(poses6, np.float64)])
+
+
+def poses_to_kitti(poses6: np.ndarray) -> np.ndarray:
+    """(N, 6) [roll,pitch,yaw,x,y,z] -> (N, 12) KITTI rows, first-pose
+    normalized (T0^-1 @ T_i). The matrices are built from float32 poses,
+    as the JAX package does."""
+    T = _to_mats(np.asarray(poses6, np.float32))
+    rel = np.einsum("ij,njk->nik", np.linalg.inv(T[0]), T)
+    return rel[:, :3, :].reshape(len(poses6), 12)
+
+
+def write_kitti(path: str, poses6: np.ndarray) -> None:
+    with open(path, "w") as f:
+        for r in poses_to_kitti(poses6):
+            f.write(" ".join(f"{v:.9e}" for v in r) + "\n")
 
 
 def relative_to_first(poses6: np.ndarray) -> np.ndarray:

@@ -112,6 +112,48 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     return scale[..., None] * vee(R - R.transpose(-1, -2))
 
 
+def _exp_coeffs(theta2: torch.Tensor):
+    """sin(t)/t, (1-cos t)/t^2, (1 - sin(t)/t)/t^2 with series near t=0
+    (theta^2 floored so the far branch of a small angle stays finite)."""
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
+    small = theta2 < 1e-12
+    t2 = torch.clamp(theta2, min=1e-24)
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / t2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (1.0 - a) / t2)
+    return a, b, c
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """(..., 6) twist [rho(3), w(3)] -> (..., 4, 4)."""
+    rho, w = xi[..., :3], xi[..., 3:]
+    a, b, c = _exp_coeffs(torch.sum(w * w, dim=-1))
+    W = hat(w)
+    W2 = W @ W
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
+    R = eye + a[..., None, None] * W + b[..., None, None] * W2
+    V = eye + b[..., None, None] * W + c[..., None, None] * W2
+    return make_transform(R, torch.einsum("...ij,...j->...i", V, rho))
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) -> (..., 6) twist [rho, w]."""
+    w = so3_log(T[..., :3, :3])
+    theta2 = torch.sum(w * w, dim=-1)
+    half = torch.sqrt(torch.clamp(theta2, min=1e-24)) / 2.0
+    # V^-1 = I - W/2 + (1/theta^2)(1 - theta sin / (2(1-cos))) W^2
+    cot = torch.where(
+        theta2 < 1e-12, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half * torch.cos(half) / torch.clamp(torch.sin(half),
+                                                    min=1e-12))
+        / torch.clamp(theta2, min=1e-24))
+    W = hat(w)
+    eye = torch.eye(3, dtype=T.dtype, device=T.device).expand(W.shape)
+    Vinv = eye - 0.5 * W + cot[..., None, None] * (W @ W)
+    rho = torch.einsum("...ij,...j->...i", Vinv, T[..., :3, 3])
+    return torch.cat([rho, w], dim=-1)
+
+
 def euler_to_quat(rpy: torch.Tensor) -> torch.Tensor:
     """(..., 3) [roll,pitch,yaw] -> (..., 4) [w,x,y,z] (tf setRPY)."""
     half = rpy * 0.5

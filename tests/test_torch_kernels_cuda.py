@@ -8,7 +8,7 @@ file imports no JAX, so it runs where only the port is installed:
 
 Kernels: K1 exact kNN (ops/knn_cuda.py, csrc/knn.cu) and K2 fused GN
 accumulation (ops/gn_cuda.py, csrc/gn.cu). chip_smoke.py runs the same
-comparisons at the front end's full shapes.
+comparisons at the front end's and the back end's full shapes.
 """
 
 import numpy as np
@@ -167,3 +167,65 @@ def test_kernels_at_lio_shapes(dev):
         e_k = err(H.double(), g_.double(), Hd, gd)
         e_p = err(Hp.double(), gp.double(), Hd, gd)
         assert e_k <= max(2e-4, 2.0 * e_p), (mode, e_k, e_p)
+
+
+@pytest.mark.parametrize("n_ref", [131072, 98304])
+def test_knn_kernel_at_submap_shapes(dev, n_ref):
+    """The back end's targets: a submap's geometric surf cloud (131072)
+    and the semantic registration's 3 x 32768 class clouds, queried by the
+    8192-point matched cloud at the cache's k and cap: bit-equal."""
+    q, ref, mask = _clouds(dev, 8192, n_ref, seed=3)
+    d, i, xyz = knn_cuda.knn(q, ref, mask, k=8, max_sq_dist=4.0)
+    dp, ip, xp = knn_cuda.knn_plain(q, ref, mask, k=8, max_sq_dist=4.0)
+    torch.cuda.synchronize()
+    assert torch.equal(d, dp)
+    off = i != ip
+    assert torch.equal(d[off], dp[off])
+    assert int(torch.isfinite(d).sum()) > 0
+
+
+@pytest.mark.parametrize("empty", [False, True])
+def test_knn_kernel_k1_dynamic_removal(dev, empty):
+    """k=1 without a cap, as mapping/submap.dynamic_removal_mask calls it:
+    a map with holes, and an empty map, which must give +inf (the
+    new-structure branch), never a finite distance."""
+    q, ref, mask = _clouds(dev, 8192, 65536, seed=4)
+    if empty:
+        mask = torch.zeros_like(mask)
+    d, i, _ = knn_cuda.knn(q, ref, mask, k=1)
+    dp, ip, _ = knn_cuda.knn_plain(q, ref, mask, k=1)
+    torch.cuda.synchronize()
+    assert torch.equal(d, dp) and torch.equal(i == -1, ip == -1)
+    if empty:
+        assert bool(torch.isinf(d).all()) and bool((i == -1).all())
+    else:
+        assert bool(torch.isfinite(d).all())
+
+
+def test_gn_kernel_weighted_at_refine_shape(dev):
+    """Non-unit semantic weights in [0.5, 2] at Q 8192 (the refinement's
+    matched surf capacity): scaled atol 2e-4 against the plain version."""
+    r = np.random.default_rng(6)
+    n_q, k = 8192, 8
+    base = r.uniform(-30, 30, (n_q, 1, 3))
+    cand = base + np.stack([r.uniform(-0.5, 0.5, (n_q, k)),
+                            r.uniform(-0.5, 0.5, (n_q, k)),
+                            r.normal(0, 0.005, (n_q, k))], -1)
+    pose = torch.tensor([0.01, -0.02, 0.05, 0.3, -0.2, 0.04], device=dev)
+    world = torch.from_numpy((base[:, 0] + r.normal(0, 0.05, (n_q, 3)))
+                             .astype(np.float32)).to(dev)
+    pts = se3.transform_points(se3.transform_inverse(se3.pose_to_matrix(
+        pose)), world).contiguous()
+    args = (pts, torch.from_numpy(r.uniform(size=n_q) > 0.1).to(dev),
+            torch.from_numpy(cand.astype(np.float32)).to(dev),
+            torch.from_numpy(r.uniform(size=(n_q, k)) > 0.1).to(dev),
+            torch.from_numpy(r.uniform(0.5, 2.0, n_q).astype(np.float32))
+            .to(dev),
+            gn_cuda.pack_scalars(pose, SlamConfig().matching, "surf"))
+    H, g, nv = gn_cuda.gn_partials(*args, "surf", k)
+    Hp, gp, nvp = gn_cuda.gn_partials_plain(*args, "surf", k)
+    torch.cuda.synchronize()
+    assert int(nvp) > 1000 and int(nv) == int(nvp)
+    for a, b in ((H, Hp), (g, gp)):
+        scale = float(b.abs().max()) + 1e-9
+        torch.testing.assert_close(a / scale, b / scale, atol=2e-4, rtol=0)

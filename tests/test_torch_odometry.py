@@ -228,12 +228,16 @@ import numpy as np
 import lis_slam_torch
 from lis_slam_torch import config, labels
 from lis_slam_torch.io import synthetic, synthetic_torch
+from lis_slam_torch.graph import pose_graph
 from lis_slam_torch.imu import preintegration
-from lis_slam_torch.ops import (cuda_build, deskew, features, gn_cuda, knn,
-                                knn_cuda, pretreatment, projection, scan_match,
-                                velocity_deskew, voxel)
-from lis_slam_torch.pipeline import convert, driver, lio, odometry, trajectory
-from lis_slam_torch.utils import lin, se3, se3_np
+from lis_slam_torch.loop import epsc
+from lis_slam_torch.mapping import submap
+from lis_slam_torch.ops import (cuda_build, deskew, features, gn_cuda, icp,
+                                knn, knn_cuda, pretreatment, projection,
+                                scan_match, velocity_deskew, voxel)
+from lis_slam_torch.pipeline import (convert, driver, lio, odometry,
+                                     semantic_odometry, slam, trajectory)
+from lis_slam_torch.utils import lin, profiling, se3, se3_np
 import torch
 assert not torch.backends.cuda.matmul.allow_tf32
 assert not torch.backends.cudnn.allow_tf32

@@ -82,6 +82,35 @@ def test_so3_exp_log_hat_vee(scale):
         _close(log64, w.astype(np.float64), atol=1e-9)
 
 
+@pytest.mark.parametrize("scale", [0.0, 1e-7, 1e-3, 0.5, 2.5])
+def test_se3_exp_log(scale):
+    """SE(3) exp/log (ICP update, pose-graph residuals) against the JAX
+    package across the small-angle series and large angles: rotation at
+    1e-6, log at 5e-5 (float32, the log's V^-1 divides by sin(theta/2)).
+    Translation at 1e-5 plus, outside the series branch, |rho| x 2 ulp /
+    theta: both packages take (1 - cos theta) / theta^2 in float32, which
+    cancels to a few ulp of 1 over theta^2 near theta = 1e-3, so the two
+    math libraries' last-bit cosines differ there by up to ~1e-1 of it."""
+    r = _rng()
+    xi = np.concatenate([r.normal(size=(32, 3)) * 3.0,
+                         r.normal(size=(32, 3)) * scale], 1).astype(np.float32)
+    xi[0] = 0.0
+    Tt = tse3.se3_exp(torch.from_numpy(xi)).numpy()
+    Tj = np.array(jse3.se3_exp(jnp.asarray(xi)))
+    np.testing.assert_allclose(Tt[:, :3, :3], Tj[:, :3, :3], atol=1e-6,
+                               rtol=0)
+    th2 = np.sum(xi[:, 3:].astype(np.float64) ** 2, 1)
+    ulp2_over_th = np.where(th2 < 1e-12, 0.0,
+                            2.4e-7 / np.sqrt(np.maximum(th2, 1e-24)))
+    bound = 1e-5 + np.linalg.norm(xi[:, :3], axis=1) * ulp2_over_th
+    assert np.all(np.abs(Tt[:, :3, 3] - Tj[:, :3, 3]).max(1) <= bound)
+    _close(tse3.se3_log(torch.from_numpy(Tj)), jse3.se3_log(jnp.asarray(Tj)),
+           atol=5e-5)
+    if scale in (0.0, 1e-7, 0.5):  # inside [0, pi), away from the
+        # cancellation: the log inverts the exp
+        _close(tse3.se3_log(torch.from_numpy(Tt)), xi, atol=5e-5)
+
+
 def test_transform_points_and_slerp():
     r = _rng()
     p = _poses(r, 1)[0]
