@@ -8,10 +8,13 @@ phases (one or more lines each):
   1. device - torch and CUDA versions, the card's name and power limit;
   2. build  - nvcc builds csrc/knn.cu (K1, exact kNN) and csrc/gn.cu (K2,
               fused Gauss-Newton accumulation) from the checkout;
-  3. K1     - kernel against its plain PyTorch version at the front end's
-              shapes, on a morton-ordered map built by voxel_merge_aged;
-  4. K2     - kernel against its plain version, both modes, on K1's
-              candidates;
+  3. K1     - kernel against its plain PyTorch version (bit-equal) at the
+              front end's shapes, on a morton-ordered map built by
+              voxel_merge_aged with queries morton-sorted as scan_to_map
+              sorts them;
+  4. K2     - kernel against its plain version, both modes, one cloud per
+              launch and both in the main path's one launch per GN
+              iteration, on K1's candidates;
   5. main   - the synthetic HDL-64 circuit (make_world(seed=5), radius 60 m,
               8 m/s, 60 scans, rendered on the card) through
               pipeline.driver.replay_odometry -> odometry.odom_step, once
@@ -41,12 +44,27 @@ phases (one or more lines each):
               K2 at the back end's shapes against their plain versions,
               and the pose-graph LM on the card and on the host.
 
-Then one JSON line with each kernel's launches (in all, and per path),
-error against its plain version and times, and last the device JSON line.
-Any failed phase exits nonzero with no result line; so does a machine
-without a CUDA device, and a directory without the lis_slam_torch package.
+Every kernel case (K1 at each path's shapes, K2's one launch per GN
+iteration at the front end's, the LIO path's and the refinement's) is
+timed four ways: device ms per call (torch.profiler's CUDA activities,
+summed: the kernel's own time), call ms (CUDA events around back-to-back
+calls: the host's pace where it is the slower), plain ms (its plain
+version on the card) and its bound (bytes moved once over 3.35 TB/s, or
+the operations these inputs need over 67 TFLOP/s fp32, the larger); K1
+also prints the share of map tiles it skipped. No single PyTorch call
+computes either kernel's function, so library_ms is null with the
+reason; torch.cdist + torch.topk is timed beside K1 as information only.
+With --baseline DIR (another checkout, e.g. the parent commit unpacked)
+each case also times that checkout's kernels on the same inputs, in
+turns: baseline, this, this, baseline.
 
-    python3 chip_smoke.py [--scans 60] [--out smoke_out]
+Then one JSON line with each kernel's launches (in all, and per path),
+error against its plain version, its main case's times and every case,
+and last the device JSON line. Any failed phase exits nonzero with no
+result line; so does a machine without a CUDA device, and a directory
+without the lis_slam_torch package.
+
+    python3 chip_smoke.py [--scans 60] [--out smoke_out] [--baseline DIR]
 """
 
 from __future__ import annotations
@@ -102,8 +120,10 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over `iters` launches, by CUDA events."""
+def call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """ms per call of fn(), by CUDA events around `iters` back-to-back
+    calls: host-inclusive. Where the host enqueues more slowly than the
+    card runs, this is the host's pace, not the kernel's."""
     import torch
 
     for _ in range(warmup):
@@ -117,6 +137,142 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3):
+    """(ms, ms by activity name): the card's own time per call of
+    fn(). torch.profiler traces `iters` calls; the durations of every CUDA
+    activity in the window (kernels, copies, sets) are summed and divided
+    by `iters`. A window in which the profiler recorded no device activity
+    (seen, rarely, on the H100) is traced
+    again, up to `tries` windows; then the phase fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = e.name.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0][-60:]
+                by_name[name] = by_name.get(name, 0.0) + (
+                    e.time_range.end - e.time_range.start) / 1e3 / iters
+        if by_name:
+            return sum(by_name.values()), by_name
+    raise AssertionError(f"torch.profiler recorded no CUDA activity in "
+                         f"{tries} windows")
+
+
+# The least time of a kernel's work on one H100 SXM (its published peak
+# rates: 3.35 TB/s HBM3, 67 TFLOP/s float32 outside the tensor cores;
+# rates at the full 700 W limit).
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+
+
+def _bound(nbytes: float, flops: float, flops_basis: str):
+    """(bound_ms, bound_by, basis) from the bytes moved once and the
+    operations these inputs need."""
+    t_b = nbytes / PEAK_BYTES_S * 1e3
+    t_o = flops / PEAK_FP32_FLOPS * 1e3
+    basis = (f"bytes {nbytes:.0f} / 3.35 TB/s = {t_b * 1e3:.4f} us; "
+             f"{flops_basis} = {flops:.0f} flop / 67 TFLOP/s = "
+             f"{t_o * 1e3:.4f} us")
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), basis
+
+
+def _k1_bound(q, ref, mask, k, cap):
+    """K1's bound: each input read once ((Q,3) + (N,3) f32, (N,) bool),
+    each output written once ((Q,k) f32 + i32, (Q,k,3) f32); 8 flops per
+    distance, over the pairs within the cap (capped) or every query
+    against every valid map point (uncapped). Also the brute-force figure,
+    8 x Q x N."""
+    from lis_slam_torch.ops import knn
+
+    q_n, n = q.shape[0], ref.shape[0]
+    nbytes = q_n * 12 + n * 13 + q_n * k * 20
+    valid = ref[mask]
+    if cap is None:
+        pairs, what = q_n * valid.shape[0], "8 x Q x N_valid"
+    else:
+        pairs = sum(int((knn.sq_dist(q[s:s + 256], valid) < cap).sum())
+                    for s in range(0, q_n, 256))
+        what = "8 x pairs within the cap"
+    ms, by, basis = _bound(nbytes, 8 * pairs, what)
+    brute = 8 * q_n * n / PEAK_FP32_FLOPS * 1e3
+    return ms, by, f"{basis}; brute force 8 x Q x N = {brute * 1e3:.3f} us"
+
+
+# flops per masked-in query of K2: an estimate from csrc/gn.cu's
+# arithmetic, not a count of its instructions (acos, cos, sqrt as 20
+# each): transform 18, re-rank and 5-of-k selection 18 k, centroid and
+# covariance 96, eigenvalues ~110, eigenvector ~70, line or plane
+# residual and gates ~60, J row ~70, J^T J and J^T r terms 27, block
+# sums 28
+def _gn_flops(k: int) -> int:
+    return 480 + 18 * k
+
+
+def _k2_bound(clouds, k):
+    """K2's bound for one GN iteration over `clouds` ((pts, mask, weight
+    or None) triples): pts, mask, cand (k x 3 f32) and cand_ok read once
+    per query, the weight only where one is passed, two 64-float scalar
+    rows, 43 floats out; _gn_flops per masked-in query (an estimate)."""
+    nbytes = 2 * 64 * 4 + 43 * 4
+    for p, _m, w in clouds:
+        nbytes += p.shape[0] * (12 + 1 + 13 * k + (0 if w is None else 4))
+    n_in = sum(int(m.sum()) for _p, m, _w in clouds)
+    return _bound(nbytes, n_in * _gn_flops(k),
+                  f"~{_gn_flops(k)} (estimated) x masked-in queries")
+
+
+K1_NO_LIBRARY = ("no single PyTorch call: torch.cdist + torch.topk is two "
+                 "calls, has no cap, and breaks the lowest-index tie rule")
+K2_NO_LIBRARY = ("no single PyTorch call computes LOAM's per-query line / "
+                 "plane fit reduced to H, g and n_valid")
+# per-shape timings of each kernel, filled by the phases
+CASES: dict[str, list] = {"K1": [], "K2": []}
+BASELINE = None  # (knn_cuda, gn_cuda) of --baseline's checkout
+
+
+def _timed(kernel, tag, name, path, fn, plain, bound, base_fn=None,
+           **extra):
+    """Time one case of `kernel` ("K1" or "K2"): device ms (baseline,
+    this checkout, this checkout, baseline in turns with --baseline), call
+    ms, plain ms; record it in CASES[kernel]."""
+    if base_fn is not None:
+        b1, base_names = device_ms(base_fn)
+        n1, names = device_ms(fn)
+        n2, _ = device_ms(fn)
+        b2, _ = device_ms(base_fn)
+        dev = (n1 + n2) / 2
+        extra.update(baseline_device_ms=(b1 + b2) / 2,
+                     baseline_device_ms_runs=[b1, b2], device_ms_runs=[n1, n2],
+                     baseline_call_ms=call_ms(base_fn),
+                     baseline_device_ms_by_kernel=base_names)
+    else:
+        dev, names = device_ms(fn)
+    case = dict(path=path, shape=name, device_ms=dev,
+                device_ms_by_kernel=names,
+                call_ms=call_ms(fn), plain_ms=call_ms(plain, iters=5),
+                bound_ms=bound[0], bound_by=bound[1], bound_basis=bound[2],
+                library_ms=None, **extra)
+    CASES[kernel].append(case)
+    more = "".join(f", {k} {v:.4f}" if isinstance(v, float) else ""
+                   for k, v in extra.items())
+    log(tag, f"{path} {name}: device {dev:.4f} ms (profiler), call "
+        f"{case['call_ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, bound "
+        f"{bound[0]:.6f} ms by {bound[1]} ({bound[2]}){more}")
+    return case
 
 
 def phase_device():
@@ -137,13 +293,22 @@ def phase_device():
 
 
 def phase_build(out_dir: str) -> None:
+    """Build every kernel's source at once (one nvcc each, in threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from lis_slam_torch.ops import cuda_build, gn_cuda, knn_cuda
 
-    for name, lib_fn, flags in (("knn", knn_cuda._lib, knn_cuda._FLAGS),
-                                ("gn", gn_cuda._lib, gn_cuda._FLAGS)):
+    def timed(lib_fn):
         t = time.perf_counter()
         lib_fn()
-        dt = time.perf_counter() - t
+        return time.perf_counter() - t
+
+    kernels = (("knn", knn_cuda._lib, knn_cuda._FLAGS),
+               ("gn", gn_cuda._lib, gn_cuda._FLAGS))
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        builds = [pool.submit(timed, lib_fn) for _n, lib_fn, _f in kernels]
+    for (name, _lib_fn, flags), build in zip(kernels, builds):
+        dt = build.result()
         report = cuda_build.build_log(name, flags)
         with open(os.path.join(out_dir, f"build_{name}.log"), "w") as f:
             f.write(report)
@@ -189,40 +354,46 @@ def _build_inputs(scans, gt, cfg, dev):
                 surf=(qs, qs_mask, ms, ms_mask), pose=pose)
 
 
-def _check_knn(tag, name, q, ref, mask, k, cap):
-    """K1 against its plain version on one case: distances equal (rtol
-    KNN_RTOL), the same unfilled slots, indices equal off exact ties, the
-    gathered xyz equal to ref[idx]. Returns (max |d - d_plain|, kernel ms,
-    plain ms)."""
+def _check_knn(tag, name, q, ref, mask, k, cap, path):
+    """K1 against its plain version on one case: distances, indices and
+    gathered xyz bit-equal (ties go to the lower index on both sides);
+    then its times against its bound (CASES["K1"]). Returns max
+    |d - d_plain| over the filled slots (0 when bit-equal)."""
     import torch
     from lis_slam_torch.ops import knn_cuda
 
     d, i, xyz = knn_cuda.knn(q, ref, mask, k=k, max_sq_dist=cap)
-    dp, ip, _xp = knn_cuda.knn_plain(q, ref, mask, k=k, max_sq_dist=cap)
+    dp, ip, xp = knn_cuda.knn_plain(q, ref, mask, k=k, max_sq_dist=cap)
     torch.cuda.synchronize()
-    check(bool(torch.equal(torch.isinf(d), torch.isinf(dp))),
-          f"{tag} {name}: filled slots differ")
-    check(bool(torch.equal(i < 0, torch.isinf(d))),
-          f"{tag} {name}: index -1 and d=inf disagree")
     fin = torch.isfinite(dp)
-    err = float(torch.max(torch.abs(d[fin] - dp[fin]))) if fin.any() else 0.0
-    rel = torch.abs(d[fin] - dp[fin]) <= KNN_RTOL * torch.abs(dp[fin])
-    check(bool(rel.all()), f"{tag} {name}: distances differ (max {err})")
-    # indices equal except between exactly tied distances
-    diff = i != ip
-    check(bool(torch.equal(d[diff], dp[diff])),
-          f"{tag} {name}: {int(diff.sum())} indices differ off ties")
-    near = ref[torch.clamp(i, min=0).long()]
-    check(bool(torch.equal(torch.where((i >= 0)[..., None], near, 0.0), xyz)),
-          f"{tag} {name}: xyz != ref[idx]")
-    ms_k = cuda_ms(lambda: knn_cuda.knn(q, ref, mask, k=k, max_sq_dist=cap))
-    ms_p = cuda_ms(lambda: knn_cuda.knn_plain(q, ref, mask, k=k,
-                                              max_sq_dist=cap), iters=5)
-    filled = float((i >= 0).float().mean())
-    log(tag, f"{name}: ok, max|d-d_plain| {err:.3g}, index ties "
-        f"{int(diff.sum())}, filled {filled:.3f}, kernel {ms_k:.4f} ms, "
-        f"plain {ms_p:.4f} ms")
-    return err, ms_k, ms_p
+    err = (float(torch.max(torch.abs(d[fin] - dp[fin])))
+           if bool(fin.any()) and torch.equal(fin, torch.isfinite(d))
+           else 0.0)
+    check(bool(torch.equal(d, dp) and torch.equal(i, ip)
+               and torch.equal(xyz, xp)),
+          f"{tag} {name}: not bit-equal to the plain version (max|d-dp| "
+          f"{err}, {int((i != ip).sum())} indices differ)")
+    if not bool(mask.any()):
+        check(bool(torch.isinf(d).all()),
+              f"{tag} {name}: empty map gave a finite distance")
+    done, total = knn_cuda.tiles_computed(q, ref, mask, k=k, max_sq_dist=cap)
+    extra = dict(filled=float((i >= 0).float().mean()), tiles_computed=done,
+                 tiles_total=total,
+                 tiles_skipped_share=1.0 - done / max(total, 1))
+    if q.shape[0] * int(mask.sum()) <= 2**30:  # informative only
+        valid = ref[mask]
+        kk = min(k, valid.shape[0])
+        extra["cdist_topk_ms"] = call_ms(
+            lambda: torch.topk(torch.cdist(q, valid), kk, largest=False),
+            iters=5) if kk > 0 else None
+    base = None if BASELINE is None else (
+        lambda: BASELINE[0].knn(q, ref, mask, k=k, max_sq_dist=cap))
+    _timed("K1", tag, name, path,
+           lambda: knn_cuda.knn(q, ref, mask, k=k, max_sq_dist=cap),
+           lambda: knn_cuda.knn_plain(q, ref, mask, k=k, max_sq_dist=cap),
+           _k1_bound(q, ref, mask, k, cap), base_fn=base,
+           library_none_reason=K1_NO_LIBRARY, **extra)
+    return err
 
 
 def phase_k1(inp, dev):
@@ -232,29 +403,32 @@ def phase_k1(inp, dev):
     T = se3.pose_to_matrix(inp["pose"])
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
+    # the queries as scan_to_map hands them to K1: morton-sorted, then
+    # moved to the map frame
     qc, _, mc, mc_mask = inp["corner"]
     qs, _, ms, ms_mask = inp["surf"]
-    cw = se3.transform_points(T, qc).contiguous()
-    sw = se3.transform_points(T, qs).contiguous()
+    cw = se3.transform_points(T, _sorted(*inp["corner"][:2])).contiguous()
+    sw = se3.transform_points(T, _sorted(*inp["surf"][:2])).contiguous()
     holes = ms_mask & (torch.rand(ms_mask.shape, generator=gen,
                                   device=dev) > 0.1)
     cases = [
-        # name, query, map, mask, k, cap
-        ("corner Q1024 N16384 k8 cap4", cw, mc, mc_mask, 8, 4.0),
-        ("surf Q2048 N65536 k8 cap4", sw, ms, ms_mask, 8, 4.0),
-        ("surf Q2000 N65536 k1 nocap holes", sw[:2000].contiguous(), ms,
-         holes, 1, None),
-        ("corner Q1000 N16384 k8 nocap", cw[:1000].contiguous(), mc, mc_mask,
-         8, None),
+        # path, name, query, map, mask, k, cap
+        ("main", "corner Q1024 N16384 k8 cap4", cw, mc, mc_mask, 8, 4.0),
+        ("main", "surf Q2048 N65536 k8 cap4", sw, ms, ms_mask, 8, 4.0),
+        ("checks", "surf Q2000 N65536 k1 nocap holes",
+         sw[:2000].contiguous(), ms, holes, 1, None),
+        ("checks", "corner Q1000 N16384 k8 nocap", cw[:1000].contiguous(),
+         mc, mc_mask, 8, None),
     ]
-    worst = 0.0
-    timing = None
-    for name, q, ref, mask, k, cap in cases:
-        err, ms_k, ms_p = _check_knn("K1", name, q, ref, mask, k, cap)
-        worst = max(worst, err)
-        if timing is None or q.shape[0] * ref.shape[0] > timing[0]:
-            timing = (q.shape[0] * ref.shape[0], ms_k, ms_p)
-    return {"max_abs_err": worst, "ms": timing[1], "plain_ms": timing[2]}
+    return max(_check_knn("K1", name, q, ref, mask, k, cap, path)
+               for path, name, q, ref, mask, k, cap in cases)
+
+
+def _sorted(pts, mask):
+    """A query cloud in scan_to_map's order (_morton_sort_queries)."""
+    from lis_slam_torch.ops import scan_match
+
+    return scan_match._morton_sort_queries(pts, mask, None)[0]
 
 
 def _scaled_err(H, g, Hr, gr):
@@ -299,100 +473,185 @@ def _gn_world(mode, n_map, dev, seed):
             pts.astype(np.float32), rng)
 
 
+POSE_TRUE = (0.01, -0.02, 0.08, 0.5, -0.3, 0.05)
+POSE_OFF = (0.002, -0.001, 0.004, 0.05, -0.03, 0.01)  # the GN guess's error
+
+
+def _gn_case(mode, n_map, n_q, seed, cfg, dev, w_lo=0.5, w_hi=1.5):
+    """One cloud of a well-conditioned world (_gn_world) seen from
+    POSE_TRUE, with K1's candidates at the guess POSE_TRUE + POSE_OFF on
+    the morton-ordered map: (pts, mask, cand, cand_ok, weight)."""
+    import torch
+    from lis_slam_torch.ops import knn_cuda, voxel
+    from lis_slam_torch.utils import se3
+
+    buf, buf_mask, world, rng = _gn_world(mode, n_map, dev, seed)
+    leaf = (cfg.voxel.mapping_corner_leaf if mode == "corner"
+            else cfg.voxel.mapping_surf_leaf)
+    ref, _, ref_mask = voxel.voxel_merge_aged(  # morton-ordered map
+        buf, buf_mask, torch.zeros_like(buf),
+        torch.zeros(n_map, dtype=torch.int32, device=dev),
+        torch.zeros_like(buf_mask), 0, 1, leaf, n_map)
+    sel = world[rng.integers(0, len(world), n_q)]
+    sel = sel + rng.normal(0, 0.02, sel.shape).astype(np.float32)
+    pose_true = torch.tensor(POSE_TRUE, device=dev)
+    T_inv = se3.transform_inverse(se3.pose_to_matrix(pose_true))
+    q = se3.transform_points(T_inv, torch.from_numpy(sel).to(dev))
+    q_mask = torch.from_numpy(rng.uniform(size=n_q) > 0.1).to(dev)
+    w = torch.from_numpy(rng.uniform(w_lo, w_hi, n_q).astype(
+        np.float32)).to(dev)
+    T = se3.pose_to_matrix(pose_true + torch.tensor(POSE_OFF, device=dev))
+    d, _, cand = knn_cuda.knn(se3.transform_points(T, q).contiguous(),
+                              ref, ref_mask, k=cfg.matching.nn_cache_k,
+                              max_sq_dist=4.0)
+    return q.contiguous(), q_mask, cand, (d < 4.0).contiguous(), w
+
+
+def _check_gn_pair(tag, label, path, corner, surf, cfg, pose, strict=True,
+                   ref64=None, timed=True):
+    """K2's one launch per GN iteration (gn_iteration_vec, both clouds)
+    against the sum of the plain version over the two clouds: bit-equal
+    from one launch to the next, n_valid equal, H and g within GN_ATOL
+    scaled (strict) or no further from the float64 plain sum `ref64` than
+    twice the float32 plain sum (real clouds). Then its times
+    (CASES["K2"]). Returns the scaled error against the plain sum."""
+    import torch
+    from lis_slam_torch.ops import gn_cuda
+
+    k = cfg.matching.nn_cache_k
+    host_pose = pose.detach().cpu()
+    args = (host_pose, *corner[:4], *surf[:4], corner[4], surf[4],
+            cfg.matching, k)
+    H, g, nv = gn_cuda.gn_iteration_hg(*args)
+    H2, g2, _ = gn_cuda.gn_iteration_hg(*args)
+
+    def plain():  # on the kernel's scalar rows (made on the host)
+        rows = gn_cuda.scalar_rows(host_pose, cfg.matching).to(pose.device)
+        outs = [gn_cuda.gn_partials_plain(*c, rows[i], m, k) for i, (m, c)
+                in enumerate((("corner", corner), ("surf", surf)))]
+        return tuple(a + b for a, b in zip(*outs))
+
+    Hp, gp, nvp = plain()
+    torch.cuda.synchronize()
+    check(bool(torch.equal(H, H2) and torch.equal(g, g2)),
+          f"{tag} {label}: H or g not reproducible launch to launch")
+    check(int(nv) == int(nvp), f"{tag} {label}: n_valid {int(nv)} vs plain "
+          f"{int(nvp)}")
+    eh, eg = _scaled_err(H, g, Hp, gp)
+    if strict:
+        check(eh <= GN_ATOL and eg <= GN_ATOL,
+              f"{tag} {label}: scaled error H {eh:.3g} g {eg:.3g}")
+    else:
+        Hd, gd = ref64
+        e_k = max(_scaled_err(H.double(), g.double(), Hd, gd))
+        e_p = max(_scaled_err(Hp.double(), gp.double(), Hd, gd))
+        check(e_k <= max(GN_ATOL, 2.0 * e_p),
+              f"{tag} {label}: kernel {e_k:.3g} off the f64 plain sum, "
+              f"plain f32 {e_p:.3g}")
+    log(tag, f"{label} two clouds: n_valid {int(nv)}, scaled err vs the "
+        "plain sum H {:.3g} g {:.3g}, bit-equal launch to launch".format(
+            eh, eg))
+    if not timed:
+        return max(eh, eg)
+    base = None
+    if BASELINE is not None:
+        vec = getattr(BASELINE[1], "gn_iteration_vec", None)
+        base = ((lambda: vec(*args)) if vec is not None
+                else lambda: _packed(*BASELINE[1].gn_iteration_hg(*args)))
+    name = (f"corner Q{corner[0].shape[0]} + surf Q{surf[0].shape[0]} "
+            f"k{k}")
+    _timed("K2", tag, name, path, lambda: gn_cuda.gn_iteration_vec(*args),
+           plain, _k2_bound([corner[:2] + corner[4:], surf[:2] + surf[4:]], k), base_fn=base,
+           library_none_reason=K2_NO_LIBRARY, n_valid=float(nv))
+    return max(eh, eg)
+
+
+def _packed(H, g, n):
+    """The packed (43,) normal equations, as the solver copied them to
+    the host before K2 returned them packed (scan_match._solve_on_host of
+    the two-launch design): part of a GN iteration's device work there. A
+    baseline whose wrapper returns them packed (gn_iteration_vec) is timed
+    through it."""
+    import torch
+
+    return torch.cat([H.reshape(-1), g, n.reshape(1).to(H.dtype)])
+
+
 def phase_k2(inp, cfg, dev):
     """Strict check (scaled atol GN_ATOL) on the well-conditioned worlds at
-    the slice's shapes; then the circuit's real clouds, where float32
-    rounding alone moves the plain version's surf H (see below)."""
+    the front end's shapes, one cloud per call and both in one launch;
+    then the circuit's real clouds, where float32 rounding alone moves the
+    plain version's surf H (see _check_gn_real)."""
     import torch
-    from lis_slam_torch.ops import gn_cuda, knn_cuda, voxel
-    from lis_slam_torch.utils import se3
+    from lis_slam_torch.ops import gn_cuda
 
     k = cfg.matching.nn_cache_k
     worst = 0.0
-    timing = None
-    pose_true = torch.tensor([0.01, -0.02, 0.08, 0.5, -0.3, 0.05],
-                             device=dev)
+    pose = torch.tensor(POSE_TRUE, device=dev) + torch.tensor(POSE_OFF,
+                                                              device=dev)
+    clouds = {}
     for mode, n_map, n_q, seed in (("corner", 16384, 1024, 3),
                                    ("surf", 65536, 2048, 4)):
-        buf, buf_mask, world, rng = _gn_world(mode, n_map, dev, seed)
-        leaf = (cfg.voxel.mapping_corner_leaf if mode == "corner"
-                else cfg.voxel.mapping_surf_leaf)
-        ref, _, ref_mask = voxel.voxel_merge_aged(  # morton-ordered map
-            buf, buf_mask, torch.zeros_like(buf),
-            torch.zeros(n_map, dtype=torch.int32, device=dev),
-            torch.zeros_like(buf_mask), 0, 1, leaf, n_map)
-        sel = world[rng.integers(0, len(world), n_q)]
-        sel = sel + rng.normal(0, 0.02, sel.shape).astype(np.float32)
-        T_inv = se3.transform_inverse(se3.pose_to_matrix(pose_true))
-        q = se3.transform_points(T_inv, torch.from_numpy(sel).to(dev))
-        q_mask = torch.from_numpy(rng.uniform(size=n_q) > 0.1).to(dev)
-        w = torch.from_numpy(rng.uniform(0.5, 1.5, n_q).astype(
-            np.float32)).to(dev)
-        pose = pose_true + torch.tensor([0.002, -0.001, 0.004, 0.05, -0.03,
-                                         0.01], device=dev)
-        T = se3.pose_to_matrix(pose)
-        d, _, cand = knn_cuda.knn(se3.transform_points(T, q).contiguous(),
-                                  ref, ref_mask, k=k, max_sq_dist=4.0)
-        ok = (d < 4.0).contiguous()
+        clouds[mode] = c = _gn_case(mode, n_map, n_q, seed, cfg, dev)
         sc = gn_cuda.pack_scalars(pose, cfg.matching, mode).contiguous()
-        args = (q.contiguous(), q_mask, cand, ok, w, sc, mode, k)
-        H, g, nv = gn_cuda.gn_partials(*args)
-        Hp, gp, nvp = gn_cuda.gn_partials_plain(*args)
-        H2, g2, _ = gn_cuda.gn_partials(*args)
+        H, g, nv = gn_cuda.gn_partials(*c, sc, mode, k)
+        Hp, gp, nvp = gn_cuda.gn_partials_plain(*c, sc, mode, k)
         torch.cuda.synchronize()
-        check(bool(torch.equal(H, H2) and torch.equal(g, g2)),
-              f"K2 {mode}: H or g not reproducible run to run")
         nv, nvp = int(nv), int(nvp)
         check(nvp > n_q // 4, f"K2 {mode}: only {nvp} valid rows")
         check(nv == nvp, f"K2 {mode}: n_valid {nv} vs plain {nvp}")
         eh, eg = _scaled_err(H, g, Hp, gp)
         check(eh <= GN_ATOL and eg <= GN_ATOL,
               f"K2 {mode}: scaled error H {eh:.3g} g {eg:.3g}")
-        ms_k = cuda_ms(lambda: gn_cuda.gn_partials(*args))
-        ms_p = cuda_ms(lambda: gn_cuda.gn_partials_plain(*args), iters=5)
         log("K2", f"{mode} Q{n_q} N{n_map} k{k}: ok, n_valid {nv} (plain "
-            f"{nvp}), scaled err H {eh:.3g} g {eg:.3g}, kernel "
-            f"{ms_k:.4f} ms, plain {ms_p:.4f} ms")
+            f"{nvp}), scaled err H {eh:.3g} g {eg:.3g}")
         worst = max(worst, eh, eg)
-        if timing is None or n_q > timing[0]:
-            timing = (n_q, ms_k, ms_p)
-
+    worst = max(worst, _check_gn_pair("K2", "well-conditioned worlds",
+                                      "checks", clouds["corner"],
+                                      clouds["surf"], cfg, pose,
+                                      timed=False))
     # The circuit's own clouds. Some surf rows have five nearly collinear
     # neighbours (ring lines in sparse areas): their plane normal is
     # ill-defined, so the plain version in float32 and in float64 already
     # differ by ~1e-2 scaled. The kernel must stay within that rounding
     # noise: its distance to the float64 plain version may not exceed
     # twice the float32 plain version's.
-    _check_gn_real("K2", "circuit", inp, cfg)
-    return {"max_abs_err": worst, "ms": timing[1], "plain_ms": timing[2]}
+    _check_gn_real("K2", "circuit", inp, cfg, "main")
+    return worst
 
 
-def _check_gn_real(tag, label, inp, cfg):
+def _check_gn_real(tag, label, inp, cfg, path):
     """K2 on a path's real matched clouds against its map, near the true
-    pose: no further from the float64 plain version than twice the float32
-    plain version (or GN_ATOL scaled)."""
+    pose: each cloud, and both in one launch, no further from the float64
+    plain version than twice the float32 plain version (or GN_ATOL
+    scaled); the two-cloud launch timed at the path's shapes."""
     import torch
     from lis_slam_torch.ops import gn_cuda, knn_cuda
     from lis_slam_torch.utils import se3
 
     k = cfg.matching.nn_cache_k
     dev = inp["pose"].device
-    pose = inp["pose"] + torch.tensor([0.002, -0.001, 0.004, 0.05, -0.03,
-                                       0.01], device=dev)
+    pose = inp["pose"] + torch.tensor(POSE_OFF, device=dev)
     T = se3.pose_to_matrix(pose)
-    for mode in ("corner", "surf"):
+    # the scalar rows as the main path makes them: on the host
+    rows = gn_cuda.scalar_rows(pose.cpu(), cfg.matching).to(dev)
+    clouds, ref64 = {}, []
+    for i, mode in enumerate(("corner", "surf")):
         q, q_mask, ref, ref_mask = inp[mode]
         d, _, cand = knn_cuda.knn(se3.transform_points(T, q).contiguous(),
                                   ref, ref_mask, k=k, max_sq_dist=4.0)
         ok = (d < 4.0).contiguous()
         w = torch.ones(q.shape[0], device=dev)
-        sc = gn_cuda.pack_scalars(pose, cfg.matching, mode).contiguous()
-        args = (q.contiguous(), q_mask.contiguous(), cand, ok, w, sc)
+        sc = rows[i]
+        # the front end passes no weights: the kernel reads them as ones
+        clouds[mode] = (q.contiguous(), q_mask.contiguous(), cand, ok, None)
+        args = (*clouds[mode][:4], w, sc)
         H, g, nv = gn_cuda.gn_partials(*args, mode, k)
         Hp, gp, nvp = gn_cuda.gn_partials_plain(*args, mode, k)
         Hd, gd, nvd = gn_cuda.gn_partials_plain(
             *(a.double() if a.is_floating_point() else a for a in args),
             mode, k)
+        ref64.append((Hd, gd))
         check(int(nvp) > 0, f"{tag} {label} {mode}: no valid rows")
         e_k = max(_scaled_err(H.double(), g.double(), Hd, gd))
         e_p = max(_scaled_err(Hp.double(), gp.double(), Hd, gd))
@@ -404,6 +663,9 @@ def _check_gn_real(tag, label, inp, cfg):
         check(e_k <= max(GN_ATOL, 2.0 * e_p),
               f"{tag} {label} {mode}: kernel {e_k:.3g} off the f64 plain "
               f"version, plain f32 {e_p:.3g}")
+    _check_gn_pair(tag, label, path, clouds["corner"], clouds["surf"], cfg,
+                   pose, strict=False,
+                   ref64=(ref64[0][0] + ref64[1][0], ref64[0][1] + ref64[1][1]))
 
 
 def phase_main(scans, gt, cfg, dev, out_dir):
@@ -500,14 +762,14 @@ def phase_main(scans, gt, cfg, dev, out_dir):
 def _launches():
     from lis_slam_torch.ops import gn_cuda, knn_cuda
 
-    return knn_cuda.knn.launches, gn_cuda.gn_partials.launches
+    return knn_cuda.knn.launches, gn_cuda.gn_iteration_vec.launches
 
 
 def _zero_launches():
     from lis_slam_torch.ops import gn_cuda, knn_cuda
 
     knn_cuda.knn.launches = 0
-    gn_cuda.gn_partials.launches = 0
+    gn_cuda.gn_iteration_vec.launches = 0
 
 
 def _accuracy(tag, poses, gt):
@@ -661,12 +923,12 @@ def phase_lio(dev, out_dir):
                                     device=dev))
     T = se3.pose_to_matrix(inp["pose"])
     k = cfg.matching.nn_cache_k
-    for mode, (q, _m, ref, ref_mask) in (("corner", inp["corner"]),
-                                         ("surf", inp["surf"])):
+    for mode, (q, q_mask, ref, ref_mask) in (("corner", inp["corner"]),
+                                             ("surf", inp["surf"])):
         _check_knn("lio K1", f"{mode} Q{q.shape[0]} N{ref.shape[0]} k{k} "
-                   "cap4", se3.transform_points(T, q).contiguous(), ref,
-                   ref_mask, k, 4.0)
-    _check_gn_real("lio K2", "LIO map", inp, cfg)
+                   "cap4", se3.transform_points(T, _sorted(q, q_mask))
+                   .contiguous(), ref, ref_mask, k, 4.0, "lio")
+    _check_gn_real("lio K2", "LIO map", inp, cfg, "lio")
     del inp, sin
 
     # 2. the velocity front end, body velocity and rate from ground truth
@@ -800,13 +1062,13 @@ def _check_slam_kernels(system, cfg, dev):
     K1 at k=1 (dynamic removal) on the local map with holes and on an
     empty map; K1 bit-equal against the submap-sized targets (geometric
     surf N 131072, the semantic registration's 3 x 32768 = 98304) at Q
-    8192; K2 with weights in [0.5, 2] at Q 8192. Returns the worst error
-    of each kernel (K1 distance, K2 scaled)."""
+    8192; K2 with weights in [0.5, 2] at the refinement's corner 4096 +
+    surf 8192. Returns the worst error of each kernel (K1 distance, K2
+    scaled)."""
     import torch
-    from lis_slam_torch.ops import gn_cuda, knn_cuda, voxel
+    from lis_slam_torch.ops import voxel
     from lis_slam_torch.utils import se3
 
-    worst_k1 = worst_k2 = 0.0
     subs = system.collector.submaps
     check(len(subs) >= 3, f"slam: {len(subs)} submaps")
     prev, cur = subs[1], subs[2]
@@ -824,6 +1086,8 @@ def _check_slam_kernels(system, cfg, dev):
                                         device=dev) > 0.1)
     t_sem = torch.cat([prev.class_xyz[c] for c in (0, 1, 2)]).contiguous()
     t_sem_m = torch.cat([prev.class_mask[c] for c in (0, 1, 2)]).contiguous()
+    # registration runs scan_to_map: its queries come morton-sorted
+    qr = se3.transform_points(T, _sorted(q, _qm)).contiguous()
     k = cfg.matching.nn_cache_k
     cases = [
         (f"dynamic removal Q{qw.shape[0]} N{sem.surf_pts.shape[0]} k1 nocap "
@@ -831,54 +1095,23 @@ def _check_slam_kernels(system, cfg, dev):
         (f"dynamic removal Q{qw.shape[0]} empty map k1 nocap", qw,
          sem.surf_pts, torch.zeros_like(holes), 1, None),
         (f"geo registration Q{qw.shape[0]} N{prev.surf_xyz.shape[0]} k{k} "
-         "cap4", qw, prev.surf_xyz, prev.surf_mask, k, 4.0),
-        (f"sem registration Q{qw.shape[0]} N{t_sem.shape[0]} k{k} cap4", qw,
+         "cap4", qr, prev.surf_xyz, prev.surf_mask, k, 4.0),
+        (f"sem registration Q{qw.shape[0]} N{t_sem.shape[0]} k{k} cap4", qr,
          t_sem, t_sem_m, k, 4.0),
     ]
-    for name, qq, ref, mask, kk, cap in cases:
-        err, _ms_k, _ms_p = _check_knn("slam K1", name, qq, ref, mask, kk, cap)
-        d, _i, _x = knn_cuda.knn(qq, ref, mask, k=kk, max_sq_dist=cap)
-        dp, _ip, _xp = knn_cuda.knn_plain(qq, ref, mask, k=kk,
-                                          max_sq_dist=cap)
-        check(bool(torch.equal(d, dp)), f"slam K1 {name}: not bit-equal")
-        if not bool(mask.any()):
-            check(bool(torch.isinf(d).all()),
-                  f"slam K1 {name}: empty map gave a finite distance")
-        worst_k1 = max(worst_k1, err)
+    worst_k1 = max(_check_knn("slam K1", name, qq, ref, mask, kk, cap, "slam")
+                   for name, qq, ref, mask, kk, cap in cases)
 
-    # K2 with non-unit weights at the refinement's Q = 8192
-    n_q, n_map = cfg.submap.matched_surf_capacity, 65536
-    buf, buf_mask, world, rng = _gn_world("surf", n_map, dev, 11)
-    ref, _, ref_mask = voxel.voxel_merge_aged(
-        buf, buf_mask, torch.zeros_like(buf),
-        torch.zeros(n_map, dtype=torch.int32, device=dev),
-        torch.zeros_like(buf_mask), 0, 1, cfg.voxel.mapping_surf_leaf, n_map)
-    pose_true = torch.tensor([0.01, -0.02, 0.08, 0.5, -0.3, 0.05], device=dev)
-    sel = world[rng.integers(0, len(world), n_q)]
-    sel = sel + rng.normal(0, 0.02, sel.shape).astype(np.float32)
-    qs = se3.transform_points(se3.transform_inverse(se3.pose_to_matrix(
-        pose_true)), torch.from_numpy(sel).to(dev)).contiguous()
-    pose = pose_true + torch.tensor([0.002, -0.001, 0.004, 0.05, -0.03, 0.01],
-                                    device=dev)
-    d, _, cand = knn_cuda.knn(
-        se3.transform_points(se3.pose_to_matrix(pose), qs).contiguous(), ref,
-        ref_mask, k=k, max_sq_dist=4.0)
-    w = torch.from_numpy(rng.uniform(0.5, 2.0, n_q).astype(np.float32)).to(dev)
-    args = (qs, torch.from_numpy(rng.uniform(size=n_q) > 0.1).to(dev), cand,
-            (d < 4.0).contiguous(), w,
-            gn_cuda.pack_scalars(pose, cfg.matching, "surf").contiguous(),
-            "surf", k)
-    H, g, nv = gn_cuda.gn_partials(*args)
-    Hp, gp, nvp = gn_cuda.gn_partials_plain(*args)
-    torch.cuda.synchronize()
-    eh, eg = _scaled_err(H, g, Hp, gp)
-    log("slam K2", f"surf Q{n_q} N{n_map} k{k}, weights in [0.5, 2]: n_valid "
-        f"{int(nv)} (plain {int(nvp)}), scaled err H {eh:.3g} g {eg:.3g}")
-    check(int(nvp) > n_q // 4, f"slam K2: only {int(nvp)} valid rows")
-    check(int(nv) == int(nvp), "slam K2: n_valid differs")
-    check(eh <= GN_ATOL and eg <= GN_ATOL,
-          f"slam K2 weighted: scaled error H {eh:.3g} g {eg:.3g}")
-    worst_k2 = max(eh, eg)
+    # K2 with non-unit weights in [0.5, 2] at the refinement's capacities
+    # (matched corner 4096, surf 8192), both clouds in one launch
+    pose = torch.tensor(POSE_TRUE, device=dev) + torch.tensor(POSE_OFF,
+                                                              device=dev)
+    corner = _gn_case("corner", 16384, cfg.submap.matched_corner_capacity,
+                      12, cfg, dev, 0.5, 2.0)
+    surf = _gn_case("surf", 65536, cfg.submap.matched_surf_capacity, 11, cfg,
+                    dev, 0.5, 2.0)
+    worst_k2 = _check_gn_pair("slam K2", "weighted refine shapes", "slam",
+                              corner, surf, cfg, pose)
     return worst_k1, worst_k2
 
 
@@ -1031,11 +1264,41 @@ def phase_slam(dev, out_dir):
     return {"slam": counts}, err
 
 
+def _load_baseline(root: str):
+    """(knn_cuda, gn_cuda) of the lis_slam_torch package under `root`,
+    imported under another name so both checkouts live in one process;
+    its kernels build into its own _build directory."""
+    import importlib
+    import importlib.util
+
+    name = "lis_slam_torch_baseline"
+    pkg = os.path.join(os.path.abspath(root), "lis_slam_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    knn_b = importlib.import_module(f"{name}.ops.knn_cuda")
+    gn_b = importlib.import_module(f"{name}.ops.gn_cuda")
+    t = time.perf_counter()
+    knn_b._lib()
+    gn_b._lib()
+    log("build", f"baseline {root}: K1/K2 built in "
+        f"{time.perf_counter() - t:.2f} s")
+    return knn_b, gn_b
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=60)
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"),
                     help="directory for build logs and per-scan results")
+    ap.add_argument("--baseline", default=None,
+                    help="root of another checkout (e.g. the parent commit, "
+                         "unpacked): its K1/K2 are built from there and "
+                         "timed in turns with this checkout's on the same "
+                         "inputs")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     try:
@@ -1051,6 +1314,9 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         phase = "build"
         phase_build(args.out)
+        if args.baseline:
+            global BASELINE
+            BASELINE = _load_baseline(args.baseline)
 
         phase = "data"
         from lis_slam_torch.config import SensorConfig, SlamConfig
@@ -1087,8 +1353,9 @@ def main() -> int:
         phase = "slam"
         slam_launches, (k1_slam, k2_slam) = phase_slam(dev, args.out)
         launches.update(slam_launches)
-        k1["max_abs_err"] = max(k1["max_abs_err"], k1_slam)
-        k2["max_abs_err"] = max(k2["max_abs_err"], k2_slam)
+        k1, k2 = max(k1, k1_slam), max(k2, k2_slam)
+        with open(os.path.join(args.out, "kernel_cases.json"), "w") as f:
+            json.dump({"card": card, "cases": CASES}, f, indent=1)
     except BaseException as e:  # any failure: report and exit nonzero
         if isinstance(e, SystemExit) and isinstance(e.code, str):
             print(f"FAIL [{phase}]: {e.code}", file=sys.stderr)
@@ -1097,14 +1364,23 @@ def main() -> int:
             print(f"FAIL [{phase}]: {e!r}", file=sys.stderr)
         return 1
     kernels = []
-    for j, (name, source, replaces, res) in enumerate((
-            ("K1 exact kNN", K1_SOURCE, K1_REPLACES, k1),
-            ("K2 fused GN accumulation", K2_SOURCE, K2_REPLACES, k2))):
+    for j, (key, name, source, replaces, err) in enumerate((
+            ("K1", "K1 exact kNN", K1_SOURCE, K1_REPLACES, k1),
+            ("K2", "K2 fused GN accumulation", K2_SOURCE, K2_REPLACES, k2))):
         per_path = {p: c[j] for p, c in launches.items()}
-        kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces,
-                            launches=sum(per_path.values()),
-                            launches_per_path=per_path, **res))
+        # the headline numbers: the main path's largest case
+        top = max((c for c in CASES[key] if c["path"] == "main"),
+                  key=lambda c: c["bound_ms"])
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(per_path.values()), launches_per_path=per_path,
+            max_abs_err=err, ms=top["device_ms"], plain_ms=top["plain_ms"],
+            bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+            library_ms=None, shape=top["shape"],
+            device_ms=top["device_ms"], call_ms=top["call_ms"],
+            bound_basis=top["bound_basis"],
+            library_none_reason=top["library_none_reason"],
+            cases=CASES[key]))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 // K2: fused Gauss-Newton correspondence accumulation for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel lis_slam_tpu/ops/pallas_gn.py:_gn_kernel
-// (launched by gn_partials, called by gn_iteration_hg once per cloud per GN
-// iteration). Per query, the whole LOAM iteration body of
+// (launched by gn_partials, which gn_iteration_hg calls once per cloud per
+// GN iteration). Per query, the whole LOAM iteration body of
 // cornerOptimization / surfOptimization (odomEstimationNode.cpp:633-827):
 //   transform by the pose -> re-rank the k cached candidates and take the
 //   5 nearest by iterated min (lowest slot on ties) -> gate on the 5th
@@ -10,25 +10,40 @@
 //   -> closed-form 3x3 eigenvalues -> projector eigenvector (first-max
 //   column) -> corner point-to-line or surf TLS plane -> damping and gates
 //   -> weighted Jacobian row J (6) and residual r.
-// Output: per block, the 21 upper-triangle entries of sum J^T J, the 6 of
-// sum J^T (-r) and n_valid (28 floats); a second kernel sums the blocks in
-// a fixed order. No atomics, so H is bit-reproducible from run to run.
+// One launch per GN iteration covers both clouds: corner blocks first,
+// then surf blocks, each block in one mode. Each block writes the 21
+// upper-triangle entries of sum J^T J, the 6 of sum J^T (-r) and n_valid
+// (28 floats); the last block to finish (an atomic ticket after a
+// __threadfence) sums the corner blocks and the surf blocks, each in
+// block order, adds the two, writes the full symmetric H (36), g (6) and
+// n_valid, and resets the ticket for the next launch. No other atomics, so
+// H is bit-reproducible from run to run (and equal to the two-launch
+// design's Hc + Hs at the same block size).
 //
-// What bounds it on the H100: not bytes (a 2048-query cloud reads ~300 KB)
-// but latency — a few hundred dependent fp32 ops per query, including
-// sqrt/acos/cos, over only 2048 threads. Design: one thread per query with
-// the k candidates in registers (k is a template parameter, so the
-// selection network unrolls), 64-thread blocks so even 1024 queries spread
-// over 16 SMs, and the 28 sums reduced in the block by warp shuffles and a
-// small shared-memory pass, so only n_blocks x 28 floats reach memory.
-// Inputs keep the JAX public layout ((Q,3), (Q,k,3), ...), not the TPU's
-// transposed (3k, Qp) lanes. Built without --use_fast_math (the closed-form
-// acos/cos eigenvalues are sensitive to it) and with --fmad=false, so each
-// product rounds as in the plain PyTorch version: surf rows whose five
-// neighbours are nearly collinear have an ill-defined plane normal, and
-// there any rounding difference picks another normal.
-// Later work: more queries per SM (two clouds per launch), fusing the 6x6
-// solve and degeneracy clamp into the same launch.
+// What bounds it on the H100: not bytes (a GN iteration of the front end
+// reads ~370 KB) nor operations (~1 MFLOP) but latency: a few hundred
+// dependent fp32 ops per query, including sqrt/acos/cos, over a few
+// thousand threads, and the launch itself. Design: one launch and no
+// host-to-device copy per GN iteration (the two 64-float scalar rows --
+// pose, rotation Jacobians, gates -- travel by value in the kernel's
+// parameter struct, from the host where the pose lives); one thread per
+// query with the k candidates in registers (k is a template parameter, so
+// the selection network unrolls); the block stages its contiguous slab of
+// candidates (kThreads x k x 3 floats) and flags in shared memory with
+// 16-byte loads, padded rows so each thread then reads its own row
+// without bank conflicts; small blocks so even 1024 queries spread over
+// many SMs (64 threads: 32 were 1.1x slower at the front end's shapes
+// and 1.35x at the refinement's, timed against a copy of this file with
+// chip_smoke.py --baseline on an H100 at 700 W); the 28 sums reduced in
+// the block by warp shuffles and a small shared-memory pass. Inputs keep
+// the JAX public layout ((Q,3), (Q,k,3), ...), not the TPU's transposed
+// (3k, Qp) lanes. Built without --use_fast_math (the closed-form acos/cos
+// eigenvalues are sensitive to it) and with --fmad=false, so each product
+// rounds as in the plain PyTorch version: surf rows whose five neighbours are nearly collinear
+// have an ill-defined plane normal, and there any rounding difference
+// picks another normal.
+// Later work: fusing the 6x6 solve and degeneracy clamp into the last
+// block, so the GN loop can run on the device.
 
 #include <cuda_runtime.h>
 
@@ -36,9 +51,10 @@
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kThreads = 64;  // queries per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kOut = 28;  // 21 H upper triangle, 6 g, n_valid
+constexpr int kResult = 43;  // H (6x6 row-major), g, n_valid
 constexpr float kInf = 3e38f;
 
 // scalar row layout (ops/gn_cuda.py:pack_scalars, as pallas_gn.py:47-59)
@@ -82,21 +98,44 @@ __device__ __forceinline__ void projector_eigvec(const Sym3& A, float s1,
   vz *= inv_n;
 }
 
+// One cloud of a GN iteration. n_blocks = ceil(q_n / kThreads); a cloud
+// with q_n = 0 has no blocks.
+struct GnCloud {
+  const float* pts;       // (q_n, 3)
+  const uint8_t* mask;    // (q_n,) bool
+  const float* cand;      // (q_n, K, 3)
+  const uint8_t* cand_ok; // (q_n, K) bool
+  const float* weight;    // (q_n,) or null for all ones
+  int q_n;
+  int n_blocks;
+};
+
+// Everything one launch needs, by value: clouds 0 (corner) and 1 (surf),
+// their scalar rows (ops/gn_cuda.py:pack_scalars), the (n_blocks, 28)
+// partials scratch, the ticket (0 between launches) and the (43,) result.
+struct GnParams {
+  GnCloud cloud[2];
+  float sc[2][64];
+  float* partials;
+  unsigned int* ticket;
+  float* out;
+};
+
+// The 28 terms of one query's row: J^T J upper triangle (21), J^T (-r)
+// (6) and its validity (1); all zero for a masked-out or gated query.
+// s_cand / s_ok hold the query's own staged candidates and flags.
 template <int K, bool kCorner>
-__global__ void __launch_bounds__(kThreads)
-gn_partials_kernel(const float* __restrict__ pts,
-                   const uint8_t* __restrict__ mask,
-                   const float* __restrict__ cand,
-                   const uint8_t* __restrict__ cand_ok,
-                   const float* __restrict__ weight,
-                   const float* __restrict__ sc, int q_n,
-                   float* __restrict__ partials) {
-  __shared__ float red[kWarps][kOut];
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
+__device__ __forceinline__ void row_terms(const float* __restrict__ pts,
+                                          const uint8_t* __restrict__ mask,
+                                          const float* __restrict__ weight,
+                                          const float* sc, int qi,
+                                          bool in_range, const float* s_cand,
+                                          const uint8_t* s_ok,
+                                          float (&v)[kOut]) {
   float J[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   float r = 0.f, okf = 0.f;
 
-  if (qi < q_n && mask[qi]) {
+  if (in_range && mask[qi]) {
     const float px = pts[3 * qi], py = pts[3 * qi + 1], pz = pts[3 * qi + 2];
     const float wx = sc[SC_R + 0] * px + sc[SC_R + 1] * py + sc[SC_R + 2] * pz
                      + sc[SC_T + 0];
@@ -109,12 +148,11 @@ gn_partials_kernel(const float* __restrict__ pts,
     float cx[K], cy[K], cz[K], ds[K];
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      const size_t o = (static_cast<size_t>(qi) * K + j) * 3;
-      cx[j] = cand[o];
-      cy[j] = cand[o + 1];
-      cz[j] = cand[o + 2];
+      cx[j] = s_cand[3 * j];
+      cy[j] = s_cand[3 * j + 1];
+      cz[j] = s_cand[3 * j + 2];
       const float dx = cx[j] - wx, dy = cy[j] - wy, dz = cz[j] - wz;
-      ds[j] = cand_ok[static_cast<size_t>(qi) * K + j]
+      ds[j] = s_ok[j]
                   ? dx * dx + dy * dy + dz * dz
                   : kInf;
     }
@@ -213,7 +251,7 @@ gn_partials_kernel(const float* __restrict__ pts,
     }
 
     if (ok) {
-      const float sw = s * weight[qi];
+      const float sw = s * (weight != nullptr ? weight[qi] : 1.f);
       const float cfx = sw * nx, cfy = sw * ny, cfz = sw * nz;
       r = sw * resid0;
       okf = 1.f;
@@ -232,7 +270,6 @@ gn_partials_kernel(const float* __restrict__ pts,
     }
   }
 
-  float v[kOut];
   int t = 0;
 #pragma unroll
   for (int a = 0; a < 6; ++a)
@@ -241,6 +278,56 @@ gn_partials_kernel(const float* __restrict__ pts,
 #pragma unroll
   for (int a = 0; a < 6; ++a) v[21 + a] = J[a] * (-r);
   v[27] = okf;
+
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+gn_iteration_kernel(const __grid_constant__ GnParams p) {
+  constexpr int kRow = 3 * K + 1;  // odd stride: conflict-free row reads
+  __shared__ float s_cand[kThreads * kRow];
+  __shared__ uint8_t s_ok[kThreads * K];
+  __shared__ float red[kWarps][kOut];
+  __shared__ float tot[kOut];
+  __shared__ bool s_last;
+  const bool corner = blockIdx.x < p.cloud[0].n_blocks;
+  const GnCloud& c = p.cloud[corner ? 0 : 1];
+  const float* sc = p.sc[corner ? 0 : 1];
+  const int q0 = (corner ? blockIdx.x : blockIdx.x - p.cloud[0].n_blocks)
+                 * kThreads;
+  const int cnt = min(kThreads, c.q_n - q0);
+
+  // ---- stage the block's candidate slab: 16-byte loads when aligned ----
+  const float* src = c.cand + static_cast<size_t>(q0) * K * 3;
+  const int nf = cnt * K * 3;
+  int f0 = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    for (int j = threadIdx.x; j < nf / 4; j += kThreads) {
+      const float4 x = s4[j];
+      const float e[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int f = 4 * j + u;
+        s_cand[(f / (3 * K)) * kRow + f % (3 * K)] = e[u];
+      }
+    }
+    f0 = nf / 4 * 4;
+  }
+  for (int f = f0 + threadIdx.x; f < nf; f += kThreads)
+    s_cand[(f / (3 * K)) * kRow + f % (3 * K)] = src[f];
+  for (int j = threadIdx.x; j < cnt * K; j += kThreads)
+    s_ok[j] = c.cand_ok[static_cast<size_t>(q0) * K + j];
+  __syncthreads();
+
+  float v[kOut];
+  const int t = threadIdx.x;
+  if (corner)
+    row_terms<K, true>(c.pts, c.mask, c.weight, sc, q0 + t, t < cnt,
+                       s_cand + t * kRow, s_ok + t * K, v);
+  else
+    row_terms<K, false>(c.pts, c.mask, c.weight, sc, q0 + t, t < cnt,
+                        s_cand + t * kRow, s_ok + t * K, v);
 
   // ---- block reduction: warp shuffles, then warps in order ----
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -257,67 +344,82 @@ gn_partials_kernel(const float* __restrict__ pts,
     float acc = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) acc += red[w][threadIdx.x];
-    partials[static_cast<size_t>(blockIdx.x) * kOut + threadIdx.x] = acc;
+    p.partials[static_cast<size_t>(blockIdx.x) * kOut + threadIdx.x] = acc;
+    __threadfence();  // this block's partials before its ticket
   }
-}
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(p.ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
 
-// Sum the (n_blocks, 28) partials block by block, in order.
-__global__ void gn_sum_kernel(const float* __restrict__ partials,
-                              int n_blocks, float* __restrict__ out) {
-  const int t = threadIdx.x;
-  if (t >= kOut) return;
-  float acc = 0.f;
-  for (int b = 0; b < n_blocks; ++b) acc += partials[b * kOut + t];
-  out[t] = acc;
-}
-
-template <int K>
-cudaError_t launch(const float* pts, const uint8_t* mask, const float* cand,
-                   const uint8_t* cand_ok, const float* weight,
-                   const float* scalars, int q_n, bool corner,
-                   float* partials, float* out, cudaStream_t stream) {
-  const int n_blocks = (q_n + kThreads - 1) / kThreads;
-  if (n_blocks > 0) {
-    if (corner)
-      gn_partials_kernel<K, true><<<n_blocks, kThreads, 0, stream>>>(
-          pts, mask, cand, cand_ok, weight, scalars, q_n, partials);
-    else
-      gn_partials_kernel<K, false><<<n_blocks, kThreads, 0, stream>>>(
-          pts, mask, cand, cand_ok, weight, scalars, q_n, partials);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+  // ---- the last block: sum each cloud's blocks in order, then add ----
+  const int nb_c = p.cloud[0].n_blocks;
+  for (int i = threadIdx.x; i < kOut; i += kThreads) {
+    float ac = 0.f, as = 0.f;
+    for (int b = 0; b < nb_c; ++b)
+      ac += __ldcg(p.partials + static_cast<size_t>(b) * kOut + i);
+    for (int b = nb_c; b < static_cast<int>(gridDim.x); ++b)
+      as += __ldcg(p.partials + static_cast<size_t>(b) * kOut + i);
+    tot[i] = ac + as;
   }
-  gn_sum_kernel<<<1, 32, 0, stream>>>(partials, n_blocks, out);
-  return cudaGetLastError();
+  __syncthreads();
+  for (int o = threadIdx.x; o < kResult; o += kThreads) {
+    float x;
+    if (o < 36) {  // H[r][c] from the upper triangle, row-major
+      const int a = min(o / 6, o % 6), b = max(o / 6, o % 6);
+      x = tot[a * 6 - a * (a - 1) / 2 + (b - a)];
+    } else {  // g, then n_valid
+      x = tot[21 + (o - 36)];
+    }
+    p.out[o] = x;
+  }
+  if (threadIdx.x == 0) *p.ticket = 0u;  // ready for the next launch
 }
 
 }  // namespace
 
-// pts (q_n, 3), mask (q_n,) bool bytes, cand (q_n, k, 3), cand_ok (q_n, k)
-// bool bytes, weight (q_n,), scalars (64,) all f32 unless noted; scratch
-// partials (ceil(q_n / 64), 28); out (28,) = [H upper triangle row-major,
-// g, n_valid]. Returns a cudaError_t (0 on success).
-extern "C" int lis_gn_partials(const float* pts, const uint8_t* mask,
-                               const float* cand, const uint8_t* cand_ok,
-                               const float* weight, const float* scalars,
-                               int q_n, int k, int corner, float* partials,
-                               float* out, void* stream) {
-  if (q_n < 0) return static_cast<int>(cudaErrorInvalidValue);
+// One GN iteration over the corner and surf clouds (either may have
+// q_n = 0): pointers as in GnCloud (weights may be null: all ones),
+// `scalars` 128 floats on the host (the corner row, then the surf row),
+// scratch partials (ceil(q_c / kThreads) + ceil(q_s / kThreads), 28) and
+// ticket (one zeroed uint32, left zeroed); out (43,) = [H (6x6
+// row-major), g (6), n_valid]. One launch. Returns a cudaError_t.
+extern "C" int lis_gn_iteration(
+    const float* c_pts, const uint8_t* c_mask, const float* c_cand,
+    const uint8_t* c_ok, const float* c_w, int c_n,
+    const float* s_pts, const uint8_t* s_mask, const float* s_cand,
+    const uint8_t* s_ok, const float* s_w, int s_n, int k,
+    const float* scalars, float* partials, unsigned int* ticket, float* out,
+    void* stream) {
+  if (c_n < 0 || s_n < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LIS_GN_CASE(KV)                                                    \
-  case KV:                                                                 \
-    return static_cast<int>(launch<KV>(pts, mask, cand, cand_ok, weight,   \
-                                       scalars, q_n, corner != 0,          \
-                                       partials, out, st));
+  GnParams p;
+  p.cloud[0] = {c_pts, c_mask, c_cand, c_ok, c_w, c_n,
+                (c_n + kThreads - 1) / kThreads};
+  p.cloud[1] = {s_pts, s_mask, s_cand, s_ok, s_w, s_n,
+                (s_n + kThreads - 1) / kThreads};
+  for (int i = 0; i < 128; ++i) p.sc[i / 64][i % 64] = scalars[i];
+  p.partials = partials;
+  p.ticket = ticket;
+  p.out = out;
+  const int n_blocks = p.cloud[0].n_blocks + p.cloud[1].n_blocks;
+  if (n_blocks == 0)
+    return static_cast<int>(
+        cudaMemsetAsync(out, 0, kResult * sizeof(float), st));
   switch (k) {
-    LIS_GN_CASE(8)
-    LIS_GN_CASE(10)
+    case 8:
+      gn_iteration_kernel<8><<<n_blocks, kThreads, 0, st>>>(p);
+      break;
+    case 10:
+      gn_iteration_kernel<10><<<n_blocks, kThreads, 0, st>>>(p);
+      break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef LIS_GN_CASE
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Threads per block of gn_partials_kernel, so the caller can size the
-// partials scratch.
+// Threads (queries) per block, so the caller can size the partials
+// scratch.
 extern "C" int lis_gn_block_size() { return kThreads; }

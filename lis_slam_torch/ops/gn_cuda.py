@@ -3,9 +3,17 @@
 Port of lis_slam_tpu/ops/pallas_gn.py (`gn_partials`, the Pallas TPU
 kernel `_gn_kernel`, `pack_scalars`, `gn_iteration_hg`). The kernel is CUDA
 C++ in csrc/gn.cu — see its header for what bounds it on the H100 and how
-its design answers. `gn_partials` takes the plain PyTorch version for
-tensors on the CPU and launches the kernel for CUDA tensors; it never falls
-back.
+its design answers: one launch per GN iteration for both clouds, the
+scalar rows by value from the host, the block sums reduced by the last
+block. The wrappers take the plain PyTorch version for tensors on the CPU
+and launch the kernel for CUDA tensors; they never fall back.
+
+`gn_iteration_vec` is the main path's call (scan_match, once per GN
+iteration): it returns the packed (43,) normal equations [H (6x6
+row-major), g (6), n_valid], so the solver brings them to the host in one
+copy. `gn_iteration_hg` unpacks them as the JAX function returns them;
+`gn_partials` runs one cloud. Every K2 launch counts in
+`gn_iteration_vec.launches`.
 
 The plain version is the op-by-op ("xla" backend) math of
 scan_match._iteration_update for ONE cloud — transform, stable re-rank,
@@ -33,9 +41,6 @@ _FLAGS = ("--fmad=false",)  # products round as in the plain version
 # eigen_ratio_line (corner) / plane_fit_tolerance (surf)
 _SC_M = 12
 _SC_GATES = 39
-# (6,6) H from the 21 upper-triangle sums, row-major
-_SYM_INDEX = [min(i, j) * 6 - min(i, j) * (min(i, j) - 1) // 2
-              + abs(i - j) for i in range(6) for j in range(6)]
 
 
 def pack_scalars(pose: torch.Tensor, cfg: MatchingConfig,
@@ -83,57 +88,85 @@ def gn_partials_plain(pts, mask, cand, cand_ok, weight, scalars, mode: str,
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("gn", _FLAGS)
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lis_gn_partials.argtypes = [p, p, p, p, p, p, i32, i32, i32, p, p, p]
-    lib.lis_gn_partials.restype = i32
+    cloud = [p, p, p, p, p, i32]
+    lib.lis_gn_iteration.argtypes = cloud + cloud + [i32, p, p, p, p, p]
+    lib.lis_gn_iteration.restype = i32
     lib.lis_gn_block_size.argtypes = []
     lib.lis_gn_block_size.restype = i32
     return lib
 
 
 @functools.cache
-def _sym_index(device: torch.device) -> torch.Tensor:
-    return torch.tensor(_SYM_INDEX, dtype=torch.int64, device=device)
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The zeroed counter that the last block of each launch on `device`
+    claims and resets (launches on one stream run one after another)."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _check_cloud(pts, mask, cand, cand_ok, weight, k, what):
+    q_n = pts.shape[0]
+    tensors = [t for t in (pts, mask, cand, cand_ok, weight) if t is not None]
+    if any(t.device != pts.device for t in tensors):
+        raise ValueError(f"{what}: inputs must share a device")
+    if any(t is not None and t.dtype != torch.float32
+           for t in (pts, cand, weight)):
+        raise TypeError(f"{what}: pts, cand, weight, scalars must be f32")
+    if mask.dtype != torch.bool or cand_ok.dtype != torch.bool:
+        raise TypeError(f"{what}: mask and cand_ok must be bool")
+    if (pts.shape != (q_n, 3) or mask.shape != (q_n,)
+            or cand.shape != (q_n, k, 3) or cand_ok.shape != (q_n, k)
+            or (weight is not None and weight.shape != (q_n,))):
+        raise ValueError(f"{what}: expected pts (Q,3), mask (Q,), cand "
+                         "(Q,k,3), cand_ok (Q,k), weight (Q,), scalars (64,)")
 
 
 def _check_inputs(pts, mask, cand, cand_ok, weight, scalars, mode, k):
-    q_n = pts.shape[0]
-    tensors = (pts, mask, cand, cand_ok, weight, scalars)
-    if any(t.device != pts.device for t in tensors):
+    _check_cloud(pts, mask, cand, cand_ok, weight, k, "gn_partials")
+    if scalars.device != pts.device:
         raise ValueError("gn_partials: inputs must share a device")
-    if any(t.dtype != torch.float32 for t in (pts, cand, weight, scalars)):
+    if scalars.dtype != torch.float32:
         raise TypeError("gn_partials: pts, cand, weight, scalars must be f32")
-    if mask.dtype != torch.bool or cand_ok.dtype != torch.bool:
-        raise TypeError("gn_partials: mask and cand_ok must be bool")
-    if (pts.shape != (q_n, 3) or mask.shape != (q_n,)
-            or cand.shape != (q_n, k, 3) or cand_ok.shape != (q_n, k)
-            or weight.shape != (q_n,) or scalars.shape != (64,)):
+    if scalars.shape != (64,):
         raise ValueError("gn_partials: expected pts (Q,3), mask (Q,), cand "
                          "(Q,k,3), cand_ok (Q,k), weight (Q,), scalars (64,)")
     if mode not in ("corner", "surf"):
         raise ValueError(f"gn_partials: unknown mode {mode!r}")
 
 
-def _launch(pts, mask, cand, cand_ok, weight, scalars, mode, k):
-    if not all(t.is_contiguous()
-               for t in (pts, mask, cand, cand_ok, weight, scalars)):
-        raise ValueError("gn_partials: inputs must be contiguous")
+def _launch(corner, surf, rows: torch.Tensor, k: int):
+    """One K2 launch over the clouds `corner` and `surf`, each None or
+    (pts, mask, cand, cand_ok, weight or None) on one CUDA device, with
+    `rows` the (2, 64) float32 scalar rows on the host. Returns the packed
+    (43,) result."""
     if k not in KERNEL_K:
         raise ValueError(f"gn_partials: kernel is built for k in {KERNEL_K}, "
                          f"got {k}")
     lib = _lib()
-    q_n, dev = pts.shape[0], pts.device
-    n_blocks = -(-q_n // lib.lis_gn_block_size())
+    dev = (corner if corner is not None else surf)[0].device
+    args, n_blocks = [], 0
+    for c in (corner, surf):
+        if c is None:
+            args += [None] * 5 + [0]
+            continue
+        if not all(t.is_contiguous() for t in c if t is not None):
+            raise ValueError("gn_partials: inputs must be contiguous")
+        args += [None if t is None else t.data_ptr() for t in c]
+        args.append(c[0].shape[0])
+        n_blocks += -(-c[0].shape[0] // lib.lis_gn_block_size())
+    rows = rows.to(torch.float32).contiguous()
     partials = torch.empty((max(n_blocks, 1), 28), dtype=torch.float32,
                            device=dev)
-    out = torch.empty(28, dtype=torch.float32, device=dev)
-    err = lib.lis_gn_partials(
-        pts.data_ptr(), mask.data_ptr(), cand.data_ptr(), cand_ok.data_ptr(),
-        weight.data_ptr(), scalars.data_ptr(), q_n, k,
-        1 if mode == "corner" else 0, partials.data_ptr(), out.data_ptr(),
-        cuda_build.stream_ptr(dev))
+    out = torch.empty(43, dtype=torch.float32, device=dev)
+    err = lib.lis_gn_iteration(
+        *args, k, rows.data_ptr(), partials.data_ptr(),
+        _ticket(dev).data_ptr(), out.data_ptr(), cuda_build.stream_ptr(dev))
     cuda_build.check(err, "gn kernel")
-    gn_partials.launches += 1
-    return out[_sym_index(dev)].reshape(6, 6), out[21:27], out[27]
+    gn_iteration_vec.launches += 1
+    return out
+
+
+def _unpack(hg: torch.Tensor):
+    return hg[:36].reshape(6, 6), hg[36:42], hg[42]
 
 
 def gn_partials(pts: torch.Tensor, mask: torch.Tensor, cand: torch.Tensor,
@@ -141,34 +174,72 @@ def gn_partials(pts: torch.Tensor, mask: torch.Tensor, cand: torch.Tensor,
                 scalars: torch.Tensor, mode: str, k: int):
     """One fused GN accumulation pass over one cloud. Returns (H (6,6),
     g (6,), n_valid () float32). CPU tensors take the plain version; CUDA
-    tensors launch kernel K2 (`gn_partials.launches` counts the launches)."""
+    tensors launch kernel K2 (its scalar row is read back to the host)."""
     _check_inputs(pts, mask, cand, cand_ok, weight, scalars, mode, k)
     if pts.device.type == "cpu":
         return gn_partials_plain(pts, mask, cand, cand_ok, weight, scalars,
                                  mode, k)
     if pts.device.type != "cuda":
         raise ValueError(f"gn_partials: unsupported device {pts.device}")
-    return _launch(pts, mask, cand, cand_ok, weight, scalars, mode, k)
+    cloud = (pts, mask, cand, cand_ok, weight)
+    row = scalars.detach().cpu()
+    return _unpack(_launch(cloud if mode == "corner" else None,
+                           cloud if mode == "surf" else None,
+                           torch.stack([row, row]), k))
 
 
-gn_partials.launches = 0
+def scalar_rows(pose: torch.Tensor, cfg: MatchingConfig) -> torch.Tensor:
+    """(2, 64) float32 on the host: pack_scalars' corner row, then its surf
+    row (the same but for the gate in slot 42)."""
+    corner = pack_scalars(pose.detach().to("cpu", torch.float32), cfg,
+                          "corner")
+    rows = torch.stack([corner, corner])
+    rows[1, _SC_GATES + 3] = cfg.plane_fit_tolerance
+    return rows
+
+
+def gn_iteration_vec(pose, corner_pts, corner_mask, c_cand, c_ok,
+                     surf_pts, surf_mask, s_cand, s_ok,
+                     corner_w, surf_w, cfg: MatchingConfig, k: int):
+    """The fused H/g build of one GN iteration (corner + surf clouds), as
+    the packed (43,) float32 [H (6x6 row-major), g (6), n_valid] on the
+    clouds' device. `pose` may lie on the host (the main path keeps it
+    there). CUDA clouds: one K2 launch, no host-to-device copy; CPU
+    clouds: the plain version per cloud, summed."""
+    dev = corner_pts.device
+    _check_cloud(corner_pts, corner_mask, c_cand, c_ok, corner_w, k,
+                 "gn_iteration")
+    _check_cloud(surf_pts, surf_mask, s_cand, s_ok, surf_w, k,
+                 "gn_iteration")
+    if surf_pts.device != dev:
+        raise ValueError("gn_iteration: clouds must share a device")
+    if dev.type == "cuda":
+        return _launch((corner_pts, corner_mask, c_cand, c_ok, corner_w),
+                       (surf_pts, surf_mask, s_cand, s_ok, surf_w),
+                       scalar_rows(pose, cfg), k)
+    if dev.type != "cpu":
+        raise ValueError(f"gn_iteration: unsupported device {dev}")
+    outs = []
+    for mode, pts, mask, cand, ok, w in (
+            ("corner", corner_pts, corner_mask, c_cand, c_ok, corner_w),
+            ("surf", surf_pts, surf_mask, s_cand, s_ok, surf_w)):
+        w = torch.ones(pts.shape[0], device=dev) if w is None else w
+        outs.append(gn_partials_plain(
+            pts, mask, cand, ok, w, pack_scalars(pose, cfg, mode).to(dev),
+            mode, k))
+    (Hc, gc, nc), (Hs, gs, ns) = outs
+    return torch.cat([(Hc + Hs).reshape(-1), gc + gs, (nc + ns).reshape(1)])
+
+
+gn_iteration_vec.launches = 0
 
 
 def gn_iteration_hg(pose, corner_pts, corner_mask, c_cand, c_ok,
                     surf_pts, surf_mask, s_cand, s_ok,
                     corner_w, surf_w, cfg: MatchingConfig, k: int):
-    """The fused H/g build of one GN iteration (corner + surf clouds).
-    `pose` may lie on the host; the scalar rows move to the clouds'
-    device."""
-    dev = corner_pts.device
-    ones_c = (torch.ones(corner_pts.shape[0], device=dev)
-              if corner_w is None else corner_w)
-    ones_s = (torch.ones(surf_pts.shape[0], device=dev)
-              if surf_w is None else surf_w)
-    Hc, gc, nc = gn_partials(
-        corner_pts, corner_mask, c_cand, c_ok, ones_c,
-        pack_scalars(pose, cfg, "corner").to(dev), "corner", k)
-    Hs, gs, ns = gn_partials(
-        surf_pts, surf_mask, s_cand, s_ok, ones_s,
-        pack_scalars(pose, cfg, "surf").to(dev), "surf", k)
-    return Hc + Hs, gc + gs, (nc + ns).to(torch.int32)
+    """gn_iteration_vec unpacked as the JAX function returns it: (H (6,6),
+    g (6,), n_valid () int32)."""
+    H, g, n = _unpack(gn_iteration_vec(
+        pose, corner_pts, corner_mask, c_cand, c_ok, surf_pts, surf_mask,
+        s_cand, s_ok, corner_w, surf_w, cfg, k))
+    return H, g, n.to(torch.int32)

@@ -2,9 +2,13 @@
 
 Port of lis_slam_tpu/ops/pallas_knn.py (`knn`, the Pallas TPU kernel
 `_knn_kernel`). The kernel is CUDA C++ in csrc/knn.cu — see its header
-for what bounds it on the H100 and how its design answers. `knn` takes the
-plain PyTorch version (ops/knn.py:knn_bruteforce + a gather) for tensors
-on the CPU, and launches the kernel for CUDA tensors; it never falls back.
+for what bounds it on the H100 and how its design answers: per-tile AABBs
+of the morton-ordered map, and a group of 32 queries scans only the tiles
+whose box can still beat its worst k-th best. `knn` takes the plain
+PyTorch version (ops/knn.py:knn_bruteforce + a gather) for tensors on the
+CPU, and launches the kernel for CUDA tensors; it never falls back.
+`tile_aabb_plain` and `tile_lower_bound` are the plain versions of the
+kernel's tile boxes and of its skip test, for the CPU tests.
 
 Contract (as `knn_pallas`): (sq_dists (Q,k) ascending, indices (Q,k)
 int32, neighbor xyz (Q,k,3)). With `max_sq_dist`, only neighbors strictly
@@ -24,9 +28,7 @@ from .knn import knn_bruteforce
 
 KERNEL_K = (1, 5, 8)  # k values csrc/knn.cu instantiates
 _FLAGS = ("--fmad=false",)  # products round as in the plain version
-_THREADS = 128  # queries per block (csrc/knn.cu kThreads)
-_TILE = 1024  # map points per shared-memory tile (kTile)
-_TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM H100
+_GROUP = 32  # queries per block (one per lane; csrc/knn.cu)
 
 
 def knn_plain(query: torch.Tensor, ref: torch.Tensor,
@@ -43,10 +45,38 @@ def knn_plain(query: torch.Tensor, ref: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("knn", _FLAGS)
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lis_knn.argtypes = [p, i32, p, p, i32, i32, ctypes.c_float, i32,
-                            p, p, p, p, p, p]
+    lib.lis_knn.argtypes = [p, i32, p, p, i32, i32, ctypes.c_float, p, p,
+                            p, p, p, p, p]
     lib.lis_knn.restype = i32
+    for fn in (lib.lis_knn_tile, lib.lis_knn_warps):
+        fn.argtypes = []
+        fn.restype = i32
     return lib
+
+
+def tile_aabb_plain(ref: torch.Tensor, ref_mask: torch.Tensor, tile: int):
+    """The plain version of the kernel's prepass: per tile of `tile` map
+    points, the (lo, hi) corners (T, 3) of its masked-in points; a tile
+    with none gets lo = +inf, hi = -inf."""
+    n = ref.shape[0]
+    n_tiles = -(-n // tile)
+    pad = n_tiles * tile - n
+    r = torch.cat([ref, ref.new_zeros((pad, 3))]).reshape(n_tiles, tile, 3)
+    m = torch.cat([ref_mask, ref_mask.new_zeros(pad)]).reshape(
+        n_tiles, tile, 1)
+    inf = torch.tensor(float("inf"), dtype=ref.dtype, device=ref.device)
+    return (torch.where(m, r, inf).amin(dim=1),
+            torch.where(m, r, -inf).amax(dim=1))
+
+
+def tile_lower_bound(q_lo, q_hi, t_lo, t_hi):
+    """The kernel's skip test in float32, in its order: a lower bound of
+    every squared distance between a point of the query box (q_lo, q_hi)
+    and a point of the tile box (t_lo, t_hi), (..., 3) corners each."""
+    zero = torch.zeros((), dtype=q_lo.dtype, device=q_lo.device)
+    gap = torch.maximum(torch.maximum(t_lo - q_hi, q_lo - t_hi), zero)
+    gx, gy, gz = gap.unbind(-1)
+    return gx * gx + gy * gy + gz * gz
 
 
 def _check_inputs(query, ref, ref_mask):
@@ -62,12 +92,16 @@ def _check_inputs(query, ref, ref_mask):
         raise ValueError("knn: expected query (Q,3), ref (N,3), mask (N,)")
 
 
-def _launch(query, ref, ref_mask, k, max_sq_dist):
+def _launch(query, ref, ref_mask, k, max_sq_dist, tiles_done=None):
+    """Launch K1. `tiles_done` (an int32 tensor of groups x warps, filled
+    with each warp's count of scanned tiles) serves tiles_computed; the
+    main path passes none."""
     if not (query.is_contiguous() and ref.is_contiguous()
             and ref_mask.is_contiguous()):
         raise ValueError("knn: inputs must be contiguous")
     if k not in KERNEL_K:
         raise ValueError(f"knn: kernel is built for k in {KERNEL_K}, got {k}")
+    lib = _lib()
     q_n, n = query.shape[0], ref.shape[0]
     dev = query.device
     out_d = torch.empty((q_n, k), dtype=torch.float32, device=dev)
@@ -75,19 +109,35 @@ def _launch(query, ref, ref_mask, k, max_sq_dist):
     out_xyz = torch.empty((q_n, k, 3), dtype=torch.float32, device=dev)
     if q_n == 0:
         return out_d, out_i, out_xyz
-    q_blocks = -(-q_n // _THREADS)
-    splits = max(1, min(-(-_TARGET_BLOCKS // q_blocks), -(-n // _TILE)))
-    part_d = torch.empty((splits, q_n, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((splits, q_n, k), dtype=torch.int32, device=dev)
+    tile = lib.lis_knn_tile()
+    n_tiles = -(-n // tile)
+    packed = torch.empty((n_tiles * tile, 4), dtype=torch.float32,
+                         device=dev)
+    boxes = torch.empty((2 * n_tiles, 4), dtype=torch.float32, device=dev)
     bound = float("inf") if max_sq_dist is None else float(max_sq_dist)
-    err = _lib().lis_knn(
+    err = lib.lis_knn(
         query.data_ptr(), q_n, ref.data_ptr(), ref_mask.data_ptr(), n, k,
-        bound, splits, part_d.data_ptr(), part_i.data_ptr(),
-        out_d.data_ptr(), out_i.data_ptr(), out_xyz.data_ptr(),
+        bound, packed.data_ptr(), boxes.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), out_xyz.data_ptr(),
+        None if tiles_done is None else tiles_done.data_ptr(),
         cuda_build.stream_ptr(dev))
     cuda_build.check(err, "knn kernel")
     knn.launches += 1
     return out_d, out_i, out_xyz
+
+
+def tiles_computed(query, ref, ref_mask, k=5, max_sq_dist=None):
+    """(tiles scanned, tiles a brute-force scan would take) of one K1
+    launch on CUDA tensors, summed over its query groups: the share of
+    the map that skipping leaves out is 1 - scanned / total."""
+    _check_inputs(query, ref, ref_mask)
+    lib = _lib()
+    q_n, n = query.shape[0], ref.shape[0]
+    groups, n_tiles = -(-q_n // _GROUP), -(-n // lib.lis_knn_tile())
+    done = torch.zeros(groups * lib.lis_knn_warps(), dtype=torch.int32,
+                       device=query.device)
+    _launch(query, ref, ref_mask, k, max_sq_dist, tiles_done=done)
+    return int(done.sum()), groups * n_tiles
 
 
 def knn(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor,

@@ -143,9 +143,10 @@ def gn_solve_from_hg(pose: torch.Tensor, H: torch.Tensor, g: torch.Tensor,
     return pose + x, proj, degenerate, converged, n_valid, delta_r, delta_t
 
 
-def _solve_on_host(pose, H, g, n_valid, cfg):
-    """Bring (H, g, n_valid) back in ONE device->host copy and solve."""
-    hg = torch.cat([H.reshape(-1), g, n_valid.reshape(1).to(H.dtype)]).cpu()
+def _solve_on_host(pose, hg, cfg):
+    """Bring the packed normal equations [H (36), g (6), n_valid] back in
+    ONE device->host copy and solve."""
+    hg = hg.cpu()
     return gn_solve_from_hg(pose, hg[:36].reshape(6, 6), hg[36:42],
                             int(hg[42]), cfg)
 
@@ -156,7 +157,9 @@ def gauss_newton_update(pose, pts_sensor, coeff, residual, valid,
     on the host. `pose` is a CPU tensor."""
     M = torch.stack(_rotation_jacobian_mats(pose[:3])).to(pts_sensor.device)
     H, g, n_valid = normal_equations(M, pts_sensor, coeff, residual, valid)
-    return _solve_on_host(pose, H, g, n_valid, cfg)
+    return _solve_on_host(
+        pose, torch.cat([H.reshape(-1), g, n_valid.reshape(1).to(H.dtype)]),
+        cfg)
 
 
 _BIGD = 3e38
@@ -186,16 +189,16 @@ def _iteration_update(pose, corner_pts, corner_mask, c_cand, c_ok,
                       surf_pts, surf_mask, s_cand, s_ok,
                       corner_sem_weight, surf_sem_weight, cfg, cache_k):
     """One GN iteration on cached candidates, by cfg.gn_backend: "pallas"
-    runs the fused accumulation kernel K2 per cloud (ops/gn_cuda.py); "xla"
-    is the op-by-op path. Both solve through gn_solve_from_hg."""
+    runs the fused accumulation kernel K2, one launch for both clouds
+    (ops/gn_cuda.py); "xla" is the op-by-op path. Both solve through
+    gn_solve_from_hg."""
     if cfg.gn_backend == "pallas":
         from . import gn_cuda
 
-        H, g, n_valid = gn_cuda.gn_iteration_hg(
+        return _solve_on_host(pose, gn_cuda.gn_iteration_vec(
             pose, corner_pts, corner_mask, c_cand, c_ok,
             surf_pts, surf_mask, s_cand, s_ok,
-            corner_sem_weight, surf_sem_weight, cfg, cache_k)
-        return _solve_on_host(pose, H, g, n_valid, cfg)
+            corner_sem_weight, surf_sem_weight, cfg, cache_k), cfg)
     if cfg.gn_backend != "xla":
         raise ValueError(f"unknown gn_backend {cfg.gn_backend!r}")
 

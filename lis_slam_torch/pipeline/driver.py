@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..config import SlamConfig
+from ..utils import device as devices
 from . import odometry
 
 
@@ -163,14 +164,14 @@ def _sync(device: torch.device) -> None:
 
 
 def replay_odometry(scans, cfg: SlamConfig, warmup: int = 0,
-                    device: torch.device | str = "cpu") -> ReplayResult:
+                    device: torch.device | str = "cuda") -> ReplayResult:
     """Run the front-end odometry over an iterable of scans: each an
     odometry.ScanInput already padded on `device`, a SyntheticScan-like
     host object (``.points``, ``.valid``, and with cfg.imu.use_imu its
     gyro window ``.imu_time``, ``.gyro``) or a raw (P, 4) numpy array.
     Scans/s counts the scans after the first `warmup`, timed from a device
     sync to a device sync."""
-    device = torch.device(device)
+    device = devices.resolve(device)
     state = odometry.init_state(cfg, device)
     poses, kfs, nvs, its = [], [], [], []
     t0 = None

@@ -21,7 +21,7 @@ import torch
 
 from ..config import SlamConfig
 from ..imu import preintegration as pi
-from ..utils import se3
+from ..utils import device as devices, se3
 from . import driver, odometry
 
 _HOST = dict(dtype=torch.float64, device="cpu")
@@ -83,11 +83,11 @@ class LioDiagnostics:
 class LioOdometry:
     """Host loop: IMU windows + the odometry step on `device`."""
 
-    def __init__(self, cfg: SlamConfig, device: torch.device | str = "cpu"):
+    def __init__(self, cfg: SlamConfig, device: torch.device | str = "cuda"):
         if not cfg.imu.use_imu:
             raise ValueError("LIO requires imu.use_imu=True")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = devices.resolve(device)
         self.state = odometry.init_state(cfg, self.device)
         self.imu_state = pi.init_imu_state(cfg.imu)
         self.diag = LioDiagnostics()

@@ -25,7 +25,7 @@ from ..config import SlamConfig
 from ..ops import features as feat_ops
 from ..ops import deskew, pretreatment, projection, scan_match
 from ..ops import velocity_deskew, voxel
-from ..utils import se3
+from ..utils import device as devices, se3
 
 
 class OdomState(NamedTuple):
@@ -56,8 +56,9 @@ class OdomOutput(NamedTuple):
     iterations: int
 
 
-def init_state(cfg: SlamConfig, device: torch.device | str = "cpu"
+def init_state(cfg: SlamConfig, device: torch.device | str = "cuda"
                ) -> OdomState:
+    device = devices.resolve(device)
     K = cfg.keyframe.window_size
     mc = cfg.matching.corner_map_capacity
     ms = cfg.matching.surf_map_capacity

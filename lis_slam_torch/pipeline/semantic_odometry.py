@@ -24,7 +24,7 @@ from ..config import SlamConfig
 from ..mapping import submap as sm
 from ..ops import icp as icp_ops
 from ..ops import knn, projection, scan_match, voxel
-from ..utils import se3
+from ..utils import device as devices, se3
 
 _POLE, _DYN, _GND, _BLD = (int(np.where(L.CATEGORY_IDS == c)[0][0]) for c in (
     L.CAT_POLE, L.CAT_DYNAMIC, L.CAT_GROUND, L.CAT_BUILDING))
@@ -61,8 +61,9 @@ class SemanticScan(NamedTuple):
     class_w: torch.Tensor | None = None  # (5, Qk)
 
 
-def init_state(cfg: SlamConfig, device: torch.device | str = "cpu"
+def init_state(cfg: SlamConfig, device: torch.device | str = "cuda"
                ) -> SemanticOdomState:
+    device = devices.resolve(device)
     mc = cfg.submap.local_corner_capacity
     ms = cfg.submap.local_surf_capacity
     f32 = dict(dtype=torch.float32, device=device)

@@ -38,7 +38,7 @@ from ..loop import epsc
 from ..mapping import submap as sm
 from ..ops import icp as icp_ops
 from ..ops import knn, scan_match, voxel
-from ..utils import profiling, se3, se3_np
+from ..utils import device as devices, profiling, se3, se3_np
 from . import odometry, semantic_odometry as semo, trajectory
 
 # dense category indices in labels.CATEGORY_IDS order
@@ -84,8 +84,9 @@ class StepOut(NamedTuple):
     signature: torch.Tensor | None = None  # (360, 4)
 
 
-def init_fused_state(cfg: SlamConfig, device: torch.device | str = "cpu"
+def init_fused_state(cfg: SlamConfig, device: torch.device | str = "cuda"
                      ) -> FusedState:
+    device = devices.resolve(device)
     return FusedState(
         odom=odometry.init_state(cfg, device), sem=semo.init_state(cfg, device),
         last_frontend=torch.zeros(6, device=device),
@@ -270,7 +271,8 @@ class SemanticSlam:
 
     def __init__(self, cfg: SlamConfig, rangenet_params=None,
                  pose_hook=None, debug_dir: str | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
+        self.device = devices.resolve(device)
         if cfg.imu.use_imu:
             raise NotImplementedError(
                 "IMU fusion inside SemanticSlam (cfg.imu.use_imu) is not "
@@ -282,14 +284,14 @@ class SemanticSlam:
             raise NotImplementedError("the debug dump is not ported")
         self.cfg = cfg
         self.pose_hook = pose_hook
-        self.device = torch.device(device)
         self.fstate = init_fused_state(cfg, self.device)
         self.loop_detector = epsc.LoopDetector(cfg.loop)
         self.collector = sm.SubMapCollector(cfg.submap)
-        # The LM runs on the host: its small dense solve, with an exit-flag
-        # readback per sweep, is launch-bound on a GPU. The plaza lap's
-        # final 10-node solve took 184-252 ms on an H100 against 68-98 ms
-        # on its host CPU, float32 both.
+        # The LM runs on the host whatever `device` is, on purpose: its
+        # small dense solve, with an exit-flag readback per sweep, is
+        # launch-bound on a GPU. The plaza lap's final 10-node solve took
+        # 184-252 ms on an H100 against 68-98 ms on its host CPU, float32
+        # both.
         self.graph = pose_graph.GraphBuilder(
             cfg.graph, max_nodes=cfg.submap.max_submaps,
             max_edges=cfg.submap.max_submaps * 4,

@@ -62,6 +62,47 @@ def test_gn_plain_matches_pallas_interpret(mode):
                                atol=GN_ATOL)
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gn_iteration_plain_matches_pallas_interpret(weighted):
+    """One GN iteration over both clouds (the kernel's single launch on
+    the card; on the CPU the plain version per cloud, summed) against the
+    JAX gn_iteration_hg in Pallas interpret mode, weights given or None
+    (ones): H and g to GN_ATOL scaled, n_valid exact."""
+    c = _case("corner", seed=3)
+    s = _case("surf", seed=4)
+    cfg, pose, k = c[0], c[1], c[7]
+    cw, sw = (c[6], s[6]) if weighted else (None, None)
+    H_j, g_j, nv_j = pallas_gn.gn_iteration_hg(
+        pose, *c[2:6], *s[2:6], cw, sw, cfg, k)
+    tw = [None if w is None else _t(w) for w in (cw, sw)]
+    H, g, nv = gn_cuda.gn_iteration_hg(
+        _t(pose), *(_t(a) for a in c[2:6]), *(_t(a) for a in s[2:6]), *tw,
+        SlamConfig().matching, k)
+    vec = gn_cuda.gn_iteration_vec(
+        _t(pose), *(_t(a) for a in c[2:6]), *(_t(a) for a in s[2:6]), *tw,
+        SlamConfig().matching, k)
+    assert int(nv_j) > 200 and nv.dtype == torch.int32
+    assert int(nv) == int(nv_j) == int(vec[42])
+    assert torch.equal(vec[:36].reshape(6, 6), H) and torch.equal(vec[36:42], g)
+    H_j, g_j = np.asarray(H_j), np.asarray(g_j)
+    scale = np.abs(H_j).max() + 1e-9
+    np.testing.assert_allclose(H.numpy() / scale, H_j / scale, atol=GN_ATOL)
+    gscale = np.abs(g_j).max() + 1e-9
+    np.testing.assert_allclose(g.numpy() / gscale, g_j / gscale,
+                               atol=GN_ATOL)
+
+
+def test_scalar_rows_match_pack_scalars():
+    """The two host rows of a K2 launch are pack_scalars' corner and surf
+    rows, bit for bit."""
+    pose = _t(np.array([0.02, -0.01, 0.05, 0.3, -0.2, 0.04], np.float32))
+    cfg = SlamConfig().matching
+    rows = gn_cuda.scalar_rows(pose, cfg)
+    assert rows.shape == (2, 64) and rows.device.type == "cpu"
+    assert torch.equal(rows[0], gn_cuda.pack_scalars(pose, cfg, "corner"))
+    assert torch.equal(rows[1], gn_cuda.pack_scalars(pose, cfg, "surf"))
+
+
 def test_gn_wrapper_checks_inputs():
     cfg, pose, pts, mask, cand, ok, w, k = _case("surf", seed=3)
     args = [_t(a) for a in (pts, mask, cand, ok, w)]

@@ -113,3 +113,70 @@ def test_knn_wrapper_checks_inputs(clouds):
         knn_cuda.knn(q, ref, mask[:10])
     with pytest.raises(ValueError):
         knn_cuda.knn(q.to("meta"), ref.to("meta"), mask.to("meta"))
+
+
+@pytest.mark.parametrize("tile", [64, 256])
+def test_tile_aabb_plain_matches_numpy(tile):
+    """The plain version of K1's prepass: per-tile boxes of the masked-in
+    points; an all-masked tile and the ragged last tile's padding give
+    lo = +inf, hi = -inf (so the skip test's bound is +inf)."""
+    r = np.random.default_rng(21)
+    n = 5 * tile + 37  # a ragged last tile
+    ref = r.uniform(-50, 50, (n, 3)).astype(np.float32)
+    mask = r.uniform(size=n) > 0.4
+    mask[tile:2 * tile] = False  # an all-masked tile
+    mask[3 * tile:4 * tile] = False
+    mask[3 * tile + 5] = True  # a tile with one point
+    lo, hi = knn_cuda.tile_aabb_plain(torch.from_numpy(ref),
+                                      torch.from_numpy(mask), tile)
+    assert lo.shape == hi.shape == (6, 3)
+    for t in range(6):
+        sel = ref[t * tile:(t + 1) * tile][mask[t * tile:(t + 1) * tile]]
+        if len(sel) == 0:
+            assert np.all(np.isposinf(lo[t].numpy()))
+            assert np.all(np.isneginf(hi[t].numpy()))
+        else:
+            np.testing.assert_array_equal(lo[t].numpy(), sel.min(0))
+            np.testing.assert_array_equal(hi[t].numpy(), sel.max(0))
+    np.testing.assert_array_equal(lo[3].numpy(), ref[3 * tile + 5])
+    empty = knn_cuda.tile_lower_bound(torch.zeros(3), torch.ones(3), lo[1],
+                                      hi[1])
+    assert torch.isinf(empty)
+
+
+@pytest.mark.parametrize("case", ["random", "faces"])
+def test_tile_lower_bound_never_exceeds_sq_dist(case):
+    """K1's skip test is exact: its float32 bound, formed in the kernel's
+    order, is <= the float32 squared distance (ops/knn.py sq_dist, the
+    kernel's arithmetic) of every pair of a query in the query box and a
+    map point in the tile box, including points on the boxes' faces and
+    corners; so a tile with bound >= the k-th best changes nothing."""
+    r = np.random.default_rng(22 if case == "random" else 23)
+    for _ in range(40):
+        c_q, c_t = r.uniform(-100, 100, (2, 3))
+        q_lo = (c_q - r.uniform(0, 5, 3)).astype(np.float32)
+        q_hi = (c_q + r.uniform(0, 5, 3)).astype(np.float32)
+        t_lo = (c_t - r.uniform(0, 5, 3)).astype(np.float32)
+        t_hi = (c_t + r.uniform(0, 5, 3)).astype(np.float32)
+        q = r.uniform(q_lo, q_hi, (64, 3)).astype(np.float32)
+        p = r.uniform(t_lo, t_hi, (256, 3)).astype(np.float32)
+        if case == "faces":  # snap coordinates onto the boxes' faces
+            qs = r.integers(0, 3, q.shape)
+            q = np.where(qs == 0, q_lo, np.where(qs == 1, q_hi, q))
+            ps = r.integers(0, 3, p.shape)
+            p = np.where(ps == 0, t_lo, np.where(ps == 1, t_hi, p))
+            q, p = q.astype(np.float32), p.astype(np.float32)
+            # the boxes' corners and a box touching the query box
+            q[:2], p[:2] = (q_lo, q_hi), (t_lo, t_hi)
+        # the kernel's boxes are those of the points it holds
+        q_t, p_t = torch.from_numpy(q), torch.from_numpy(p)
+        lb = knn_cuda.tile_lower_bound(q_t.amin(0), q_t.amax(0), p_t.amin(0),
+                                       p_t.amax(0))
+        d = tknn.sq_dist(q_t, p_t)
+        assert lb.dtype == torch.float32 and bool(torch.all(lb <= d.min()))
+    # touching boxes: the bound is 0 and never above a distance
+    q_t = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]])
+    p_t = torch.tensor([[1.0, 1.0, 1.0], [2.0, 0.5, 1.0]])
+    lb = knn_cuda.tile_lower_bound(q_t.amin(0), q_t.amax(0), p_t.amin(0),
+                                   p_t.amax(0))
+    assert float(lb) == 0.0

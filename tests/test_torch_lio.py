@@ -182,7 +182,7 @@ def test_lio_replay_from_first_scan(jax_lio):
     (no previous window, the one-window refresh, the first two-window
     solve) and tracking within the JAX run's ATE."""
     _, tcfg = _cfgs()
-    system = lio.LioOdometry(tcfg)
+    system = lio.LioOdometry(tcfg, device="cpu")
     poses = np.asarray([system.process_scan(*a).numpy()
                         for a in jax_lio["args"][:N_SCANS]])
     gt_rel = trajectory.relative_to_first(jax_lio["gt"][:N_SCANS])

@@ -126,7 +126,7 @@ def test_replay_tracks_ground_truth(jax_run):
     """The port's own replay from a fresh state, through the driver."""
     clouds, _s, outs, gt = jax_run
     _, tcfg = _cfgs()
-    res = driver.replay_odometry(clouds, tcfg, warmup=2)
+    res = driver.replay_odometry(clouds, tcfg, warmup=2, device="cpu")
     gt_rel = trajectory.relative_to_first(gt[:N_SCANS])
     assert res.poses.shape == (N_SCANS, 6)
     assert trajectory.ate_rmse(res.poses, gt_rel, align=False) < 0.1
@@ -247,7 +247,7 @@ world = synthetic.make_world(seed=5)
 gt = synthetic.circular_trajectory(3, radius=60.0, speed=8.0)
 scans = [synthetic.render_scan(world, gt[i], None, horizon=180, seed=i)
          for i in range(2)]
-res = driver.replay_odometry(scans, cfg)
+res = driver.replay_odometry(scans, cfg, device="cpu")
 assert res.poses.shape == (2, 6) and np.isfinite(res.poses).all()
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "lis_slam_tpu")]

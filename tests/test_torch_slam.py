@@ -28,8 +28,9 @@ import torch
 
 from lis_slam_tpu.pipeline import driver as jdriver, slam as jslam
 from lis_slam_tpu.pipeline import trajectory as jtraj
-from lis_slam_torch.config import SemanticConfig
-from lis_slam_torch.pipeline import convert, driver, slam, trajectory
+from lis_slam_torch.config import SemanticConfig, lio_config
+from lis_slam_torch.pipeline import (convert, driver, lio, odometry,
+                                     semantic_odometry, slam, trajectory)
 from lis_slam_torch.utils import profiling, se3_np
 
 from _torch_plaza import render_plaza, tiny_cfgs
@@ -58,8 +59,8 @@ def cfgs():
                                                inflation_covariance=0.08)))
 
 
-def _run(mod, drv, cfg, scans):
-    system = mod.SemanticSlam(cfg, pose_hook=drift_hook)
+def _run(mod, drv, cfg, scans, **kw):
+    system = mod.SemanticSlam(cfg, pose_hook=drift_hook, **kw)
     for i, s in enumerate(scans):
         system.process_scan(drv.pad_scan(s.points[s.valid], cfg),
                             gt_labels=s.labels[s.valid], timestamp=i * 0.1)
@@ -84,7 +85,7 @@ def short_runs():
     jcfg, tcfg = cfgs()
     scans, gt = render_plaza(N_SHORT)
     js, jres = _run(jslam, jdriver, jcfg, scans)
-    ts, tres = _run(slam, driver, tcfg, scans)
+    ts, tres = _run(slam, driver, tcfg, scans, device="cpu")
     return scans, gt, (js, jres), (ts, tres)
 
 
@@ -198,7 +199,7 @@ def test_loop_closure_run_matches_jax():
     gt_rel = trajectory.relative_to_first(
         np.concatenate([gt[:lap], gt[:extra]]))
     _js, jres = _run(jslam, jdriver, jcfg, seq)
-    _ts, tres = _run(slam, driver, tcfg, seq)
+    _ts, tres = _run(slam, driver, tcfg, seq, device="cpu")
     _raw, cor = _compare_runs(jres, tres, gt_rel, min_loops=1)
     assert cor < trajectory.ate_rmse(tres.raw_poses, gt_rel, align=True)
 
@@ -207,12 +208,12 @@ def test_unported_paths_raise():
     _jcfg, tcfg = cfgs()
     with pytest.raises(NotImplementedError):
         slam.SemanticSlam(tcfg.replace(imu=dataclasses.replace(
-            tcfg.imu, use_imu=True)))
+            tcfg.imu, use_imu=True)), device="cpu")
     with pytest.raises(NotImplementedError):
-        slam.SemanticSlam(tcfg, rangenet_params={})
+        slam.SemanticSlam(tcfg, rangenet_params={}, device="cpu")
     with pytest.raises(NotImplementedError):
-        slam.SemanticSlam(tcfg, debug_dir="/nonexistent")
-    system = slam.SemanticSlam(tcfg)
+        slam.SemanticSlam(tcfg, debug_dir="/nonexistent", device="cpu")
+    system = slam.SemanticSlam(tcfg, device="cpu")
     with pytest.raises(NotImplementedError):
         system.add_gps(np.zeros(3), np.ones(3))
     with pytest.raises(NotImplementedError):
@@ -223,11 +224,31 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         system.process_scan(sin, imu_time=np.zeros(4))
     sem_on = slam.SemanticSlam(tcfg.replace(semantic=SemanticConfig(
-        enabled=True)))
+        enabled=True)), device="cpu")
     with pytest.raises(NotImplementedError):  # would run RangeNet
         sem_on.process_scan(sin)
     with pytest.raises(NotImplementedError):
         slam.slam_step(system.fstate, sin, None, tcfg, "infer")
+
+
+def test_entry_points_default_to_the_card():
+    """Without a device argument the entry points ask for CUDA: on a
+    machine without it they raise instead of running on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    _jcfg, tcfg = cfgs()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        slam.SemanticSlam(tcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        slam.init_fused_state(tcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        driver.replay_odometry([], tcfg)
+    for build in (odometry.init_state, semantic_odometry.init_state):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(tcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lio.LioOdometry(lio_config())
+    assert slam.init_fused_state(tcfg, "cpu").odom.pose.device.type == "cpu"
 
 
 def test_stage_timer():
