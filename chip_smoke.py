@@ -42,7 +42,18 @@ phases (one or more lines each):
               SlamConfig with gn_backend "pallas"; the same run again,
               untimed, with its host syncs counted by stage; then K1 and
               K2 at the back end's shapes against their plain versions,
-              and the pose-graph LM on the card and on the host.
+              and the pose-graph LM on the card and on the host;
+  9. semantic - RangeNet: the in-repo slim checkpoint labelling one plaza
+              scan (64 x 1800) per raw point against ground truth, and
+              the keyframe path's labelling of the front end's projection;
+              the full-size darknet53 (default SemanticConfig, seeded
+              random weights) at 64 x 2048 x 5, batch 1, bf16: device and
+              call ms per inference, parameters, FLOPs, TFLOP/s against
+              the bf16 peak, argmax against float32;
+ 10. slam_infer - the slam lap with cfg.semantic.enabled and no labels,
+              so the checkpoint labels every keyframe, held to the JAX
+              package's run of the same mode; then 40 lap scans with the
+              darknet53 weights as rangenet_params (scans/s).
 
 Every kernel case (K1 at each path's shapes, K2's one launch per GN
 iteration at the front end's, the LIO path's and the refinement's) is
@@ -109,6 +120,18 @@ SLAM_WARMUP = 10
 # The card's renderer draws other noise over the same geometry: a run may
 # reach 1.5 x this + 0.02 m.
 JAX_SLAM_ATE = 0.027203119709521835
+# the same lap with labels inferred by the in-repo RangeNet checkpoint
+# (cfg.semantic.enabled, no gt_labels), the JAX package on a CPU:
+#   python scripts/full_slam_infer_accuracy_bars.py
+# (numpy renderer, gn_backend "xla", aligned ATE). Bars as JAX_SLAM_ATE's.
+JAX_SLAM_INFER = {"ate_corrected_m": 0.02736524896292764,
+                  "ate_raw_m": 0.15214977157674042, "n_submaps": 10,
+                  "loop_factors": 6, "keyframes": 47}
+SEM_ACC_MIN = 0.8  # per-point label accuracy (tests/test_semantic_infer.py)
+DARKNET_PARAMS = 46_565_940  # the released darknet53, with batch statistics
+# NVIDIA's dense bf16 tensor-core peak of one H100 SXM at 700 W
+PEAK_BF16_FLOPS = 989e12
+SLAM_INFER_FULL_SCANS = 40  # lap scans with the full-size net (bench.py:575)
 
 
 def log(phase: str, msg: str) -> None:
@@ -1261,7 +1284,255 @@ def phase_slam(dev, out_dir):
     check(ate <= bar, f"slam: corrected ATE {ate} > {bar}")
     check(counts[0] > 0 and counts[1] > 0, f"slam: launches {counts}")
     err = _check_slam_kernels(system, cfg, dev)
-    return {"slam": counts}, err
+    return {"slam": counts}, err, (seq, gt)
+
+
+def _plaza_scan(dev, horizon: int, seed: int):
+    """One HDL-64 sweep of the plaza lap (pose 7 of the slam phase's lap),
+    rendered on the card with `horizon` columns: (points, labels, valid)."""
+    import torch
+    from lis_slam_torch.io import synthetic, synthetic_torch
+
+    world = synthetic_torch.to_device_world(synthetic_torch.plaza_world(),
+                                            dev)
+    gt = synthetic.circular_trajectory(
+        SLAM_LAP + 1, radius=10.0,
+        speed=2.0 * np.pi * 10.0 / (SLAM_LAP * 0.1))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return synthetic_torch.render_scan_device(
+        world, torch.as_tensor(gt[7]), gen, horizon=horizon)
+
+
+def phase_semantic(dev, out_dir):
+    """RangeNet on the card: the in-repo slim checkpoint labelling one
+    plaza scan (64 x 1800) per raw point against ground truth, and the
+    keyframe path's labelling of the front end's projection of it; then
+    the full-size darknet53 (default SemanticConfig, weights drawn from a
+    seeded generator) at 64 x 2048 x 5, batch 1, bf16: device and call ms
+    per inference, parameters, FLOPs, TFLOP/s against the bf16 peak,
+    argmax agreement with the float32 forward of the same weights.
+    Returns the full-size weight tree."""
+    import dataclasses
+
+    import torch
+    from lis_slam_torch.config import SemanticConfig, SensorConfig, SlamConfig
+    from lis_slam_torch.models import rangenet
+    from lis_slam_torch.ops import pretreatment, projection
+    from lis_slam_torch.semantic import inference, weights
+
+    # 1. the slim checkpoint, per raw point
+    cfg = SlamConfig().replace(sensor=SensorConfig(max_raw_points=64 * 1800))
+    pts, lab_gt, valid = _plaza_scan(dev, 1800, 13)
+    slim = inference.SemanticInference(cfg, device=dev)
+    lab, sem = slim(pts, valid)
+    m = valid & (lab > 0)
+    acc = float((lab[m] == lab_gt[m].to(lab.dtype)).float().mean())
+    n_lab = int(m.sum())
+    with torch.no_grad():
+        slim_dev, _ = device_ms(lambda: slim(pts, valid), iters=10)
+        slim_call = call_ms(lambda: slim(pts, valid), iters=10)
+    log("semantic", f"slim checkpoint (64 x 1800, bf16, "
+        f"{slim.cfg.semantic.enc_widths} encoder): per-point label accuracy "
+        f"{acc:.4f} on {n_lab} labelled points (limit > {SEM_ACC_MIN}); "
+        f"infer_scan_labels device {slim_dev:.4f} ms (profiler), call "
+        f"{slim_call:.4f} ms")
+    check(n_lab > 10000, f"semantic: only {n_lab} points labelled")
+    check(acc > SEM_ACC_MIN, f"semantic: label accuracy {acc}")
+    check(tuple(sem.labels.shape) == (64, 1800), "semantic: image shape")
+    # the keyframe path: RangeNet on the front end's projection
+    pre = pretreatment.pretreat(pts, valid, cfg.sensor)
+    _img, ext = projection.project_and_extract(
+        pre.points[:, :3], pre.points[:, 3], pre.ring, pre.rel_time,
+        pre.valid, cfg.sensor)
+
+    def winners():
+        return inference.infer_winner_labels(slim.model, ext, pts.shape[0],
+                                             slim.cfg)
+
+    lab_w = winners()
+    win = ext.src[ext.mask].long()
+    same = bool((lab_w[win] == lab[win]).all())
+    with torch.no_grad():
+        kf_dev, _ = device_ms(winners, iters=10)
+        kf_call = call_ms(winners, iters=10)
+    log("semantic", f"keyframe path (infer_winner_labels on the front "
+        f"end's projection): device {kf_dev:.4f} ms (profiler), call "
+        f"{kf_call:.4f} ms; labels of the {win.numel()} pixel winners "
+        f"equal to infer_scan_labels': {same}")
+    check(same, "semantic: winner labels differ from infer_scan_labels")
+
+    # 2. the full-size darknet53 on a plaza scan projected to 64 x 2048
+    full = SemanticConfig(enabled=True)
+    t = time.perf_counter()
+    tree = rangenet.init_params(full, torch.Generator().manual_seed(0))
+    n_params = sum(a.size for a in weights._flatten(tree).values())
+    init_s = time.perf_counter() - t
+    with torch.device("meta"):
+        flops = rangenet.forward_flops(
+            rangenet.create_model(full),
+            torch.empty(1, full.model_input_h, full.model_input_w,
+                        full.model_input_c))
+    scfg = SensorConfig(horizon_scan=full.model_input_w, downsample_rate=1,
+                        max_raw_points=full.model_input_h
+                        * full.model_input_w)
+    pts, _lab, valid = _plaza_scan(dev, full.model_input_w, 17)
+    pre = pretreatment.pretreat(pts, valid, scfg)
+    img, _ = projection.project_and_extract(
+        pre.points[:, :3], pre.points[:, 3], pre.ring, pre.rel_time,
+        pre.valid, scfg, want_image=True)
+    x = rangenet.build_input_image(img.rng, img.xyz, img.intensity, img.mask,
+                                   full)[None].contiguous()
+    net = inference.load_model(tree, full, dev)
+    net32 = inference.load_model(tree, dataclasses.replace(full, fp16=False),
+                                 dev)
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            d, by_kernel = device_ms(lambda: net(x), iters=10)
+            runs.append((d, call_ms(lambda: net(x), iters=10), by_kernel))
+        y16, y32 = net(x)[0], net32(x)[0]
+        d32, _ = device_ms(lambda: net32(x), iters=5)
+    torch.cuda.synchronize()
+    mask = img.mask
+    agree = float((y16.argmax(-1) == y32.argmax(-1))[mask].float().mean())
+    gap = float((y16 - y32).abs()[mask].max())
+    dev_ms = float(np.mean([r[0] for r in runs]))
+    summary = dict(device_ms=dev_ms, device_ms_runs=[r[0] for r in runs],
+                   call_ms=float(np.mean([r[1] for r in runs])),
+                   tflops=flops / dev_ms / 1e9,
+                   peak_share=flops / dev_ms / 1e9 * 1e12 / PEAK_BF16_FLOPS,
+                   top_kernels_ms=dict(sorted(runs[0][2].items(),
+                                              key=lambda kv: -kv[1])[:6]))
+    log("semantic", f"darknet53 64 x {full.model_input_w} x "
+        f"{full.model_input_c} batch 1 bf16: device {dev_ms:.4f} ms per "
+        f"inference (profiler; runs "
+        f"{', '.join(f'{r[0]:.4f}' for r in runs)}), call "
+        f"{summary['call_ms']:.4f} ms (events), {summary['tflops']:.2f} "
+        f"TFLOP/s = {summary['peak_share']:.4f} of the 989 TFLOP/s dense "
+        "bf16 peak (H100 SXM, 700 W)")
+    log("semantic", f"darknet53: {n_params} parameters with batch "
+        f"statistics (drawn in {init_s:.2f} s), {flops} FLOPs per inference "
+        f"(convolutions, 2 per multiply-add); float32 forward {d32:.4f} ms; "
+        f"argmax bf16 vs float32 agrees on {agree:.4f} of {int(mask.sum())} "
+        f"masked pixels, max logit gap {gap:.4f} (max |logit| "
+        f"{float(y32.abs().max()):.4f})")
+    with open(os.path.join(out_dir, "semantic.json"), "w") as f:
+        json.dump({"slim_accuracy": acc, "slim_device_ms": slim_dev,
+                   "slim_call_ms": slim_call,
+                   "keyframe_path_device_ms": kf_dev,
+                   "keyframe_path_call_ms": kf_call, "params": n_params,
+                   "flops": flops, "fp32_device_ms": d32,
+                   "bf16_fp32_argmax_agree": agree, "logit_gap": gap,
+                   "darknet53": summary}, f, indent=1)
+    check(n_params == DARKNET_PARAMS,
+          f"darknet53: {n_params} parameters, not {DARKNET_PARAMS}")
+    check(tuple(y16.shape) == (64, full.model_input_w, full.num_classes)
+          and bool(torch.isfinite(y16).all()), "darknet53: logits")
+    check(agree > 0.95, f"darknet53: bf16 vs float32 argmax {agree}")
+    del net, net32
+    return tree
+
+
+def _slam_infer_run(cfg, seq, dev, n, rangenet_params=None):
+    """SemanticSlam over seq[:n] without labels (lab_mode "infer"): scan 0,
+    then the timed rest through flush_pipeline. Returns (system, result,
+    scans/s, K1/K2 launches, peak bytes)."""
+    import torch
+    from lis_slam_torch.pipeline import slam
+
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    system = slam.SemanticSlam(cfg, rangenet_params=rangenet_params,
+                               pose_hook=_slam_drift_hook, device=dev)
+    check(system.model is not None, "slam_infer: no RangeNet model")
+    system.process_scan(seq[0][0], timestamp=0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, n):
+        system.process_scan(seq[i][0], timestamp=i * 0.1)
+    system.flush_pipeline()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = system.finish()
+    check(res.poses.shape == (n, 6) and bool(np.isfinite(res.poses).all()),
+          "slam_infer: corrected poses not finite (n, 6)")
+    return (system, res, (n - 1) / wall, _launches(),
+            torch.cuda.max_memory_allocated())
+
+
+def phase_slam_infer(seq, gt, darknet, dev, out_dir):
+    """The slam phase's lap with labels inferred on every keyframe: the
+    in-repo checkpoint (cfg.semantic.enabled, no gt_labels), accuracy
+    against the JAX package's run of the same mode; then the first
+    SLAM_INFER_FULL_SCANS scans with the full-size darknet53 weights as
+    rangenet_params (random weights: scans/s only)."""
+    import dataclasses
+
+    from lis_slam_torch.config import SemanticConfig, SensorConfig, SlamConfig
+    from lis_slam_torch.pipeline import slam, trajectory
+
+    base = SlamConfig().replace(sensor=SensorConfig(max_raw_points=65536),
+                                semantic=SemanticConfig(enabled=True))
+    cfg = base.replace(matching=dataclasses.replace(base.matching,
+                                                    gn_backend="pallas"))
+    warm = slam.SemanticSlam(cfg, pose_hook=_slam_drift_hook, device=dev)
+    for i in range(SLAM_WARMUP):
+        warm.process_scan(seq[i][0], timestamp=i * 0.1)
+    warm.finish()
+    del warm
+
+    n = len(seq)
+    system, res, sps, counts, peak = _slam_infer_run(cfg, seq, dev, n)
+    gt_rel = trajectory.relative_to_first(gt)
+    ate = trajectory.ate_rmse(res.poses, gt_rel, align=True)
+    raw = trajectory.ate_rmse(res.raw_poses, gt_rel, align=True)
+    rpe_t, rpe_r = trajectory.rpe(res.poses, gt_rel)
+    stages = {k: round(v["total_ms"], 3)
+              for k, v in system.timer.report().items()}
+    jx = JAX_SLAM_INFER
+    bar = 1.5 * jx["ate_corrected_m"] + 0.02
+    log("slam_infer", f"{sps:.3f} scans/s ({n - 1} timed scans through "
+        f"flush_pipeline, labels inferred on every keyframe by the "
+        f"{system._infer_cfg.semantic.enc_widths} checkpoint); ATE aligned "
+        f"corrected {ate:.4f} m, raw {raw:.4f} m (JAX CPU same mode "
+        f"{jx['ate_corrected_m']:.4f} / {jx['ate_raw_m']:.4f}, limit "
+        f"{bar:.4f}); RPE-t {rpe_t:.4f} m, RPE-r {rpe_r:.4f} deg; submaps "
+        f"{res.n_submaps} (JAX {jx['n_submaps']}), loop factors "
+        f"{res.n_loops} (JAX {jx['loop_factors']}), keyframes "
+        f"{len(system.keyframes)} (JAX {jx['keyframes']}); K1 launches "
+        f"{counts[0]}, K2 launches {counts[1]}; peak device memory {peak} "
+        "bytes")
+    log("slam_infer", "stage totals ms: " + json.dumps(stages))
+    check(res.n_loops >= 1, "slam_infer: no loop factor")
+    check(ate < raw, f"slam_infer: corrected ATE {ate} >= raw {raw}")
+    check(ate <= bar, f"slam_infer: corrected ATE {ate} > {bar}")
+    check(abs(res.n_submaps - jx["n_submaps"]) <= 1,
+          f"slam_infer: {res.n_submaps} submaps, JAX {jx['n_submaps']}")
+    check(counts[0] > 0 and counts[1] > 0, f"slam_infer: launches {counts}")
+    out = {"ate_corrected_m": ate, "ate_raw_m": raw, "rpe_t_m": rpe_t,
+           "rpe_r_deg": rpe_r, "scans_per_s": sps, "stages_total_ms": stages,
+           "n_submaps": res.n_submaps, "loop_factors": res.n_loops,
+           "keyframes": len(system.keyframes), "peak_bytes": peak,
+           "jax_cpu": jx, "poses": res.poses.tolist(),
+           "raw_poses": res.raw_poses.tolist()}
+    del system
+
+    # cfg.semantic is the default SemanticConfig: the released darknet53
+    n_full = SLAM_INFER_FULL_SCANS
+    system, res, sps_full, counts_full, peak_full = _slam_infer_run(
+        cfg, seq, dev, n_full, rangenet_params=darknet)
+    log("slam_infer", f"full-size darknet53 weights (random, seeded) as "
+        f"rangenet_params: {sps_full:.3f} scans/s over {n_full - 1} timed "
+        f"scans, {len(system.keyframes)} keyframes, finite poses; K1 "
+        f"launches {counts_full[0]}, K2 launches {counts_full[1]}; peak "
+        f"device memory {peak_full} bytes")
+    out.update(darknet53_scans_per_s=sps_full,
+               darknet53_keyframes=len(system.keyframes),
+               darknet53_peak_bytes=peak_full)
+    with open(os.path.join(out_dir, "slam_infer.json"), "w") as f:
+        json.dump(out, f)
+    return {"slam_infer": counts, "slam_infer_darknet53": counts_full}
 
 
 def _load_baseline(root: str):
@@ -1351,9 +1622,14 @@ def main() -> int:
         launches.update(phase_greedy(scans, gt, cfg, dev, vec_poses))
         del scans
         phase = "slam"
-        slam_launches, (k1_slam, k2_slam) = phase_slam(dev, args.out)
+        slam_launches, (k1_slam, k2_slam), plaza = phase_slam(dev, args.out)
         launches.update(slam_launches)
         k1, k2 = max(k1, k1_slam), max(k2, k2_slam)
+        phase = "semantic"
+        darknet = phase_semantic(dev, args.out)
+        phase = "slam_infer"
+        launches.update(phase_slam_infer(*plaza, darknet, dev, args.out))
+        del plaza, darknet
         with open(os.path.join(args.out, "kernel_cases.json"), "w") as f:
             json.dump({"card": card, "cases": CASES}, f, indent=1)
     except BaseException as e:  # any failure: report and exit nonzero

@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from .pretreatment import sum_sq3
+
 
 def sq_dist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """(Q, 3) x (N, 3) -> (Q, N) squared distances, ((dx^2 + dy^2) + dz^2)
@@ -114,18 +116,6 @@ _NEIGHBOR_OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
                      for dz in (-1, 0, 1)]
 
 
-def _sum_sq3(diff: torch.Tensor) -> torch.Tensor:
-    """sum(diff^2) over the last axis of size 3 as the JAX package's CPU
-    program evaluates it: x^2, then two fused multiply-adds (emulated in
-    float64: a float32 product is exact there, so only the sum rounds).
-    A plain ((x^2 + y^2) + z^2) differs in the last bit for ~20% of
-    points, which reorders near-ties."""
-    d = diff.double()
-    acc = (d[..., 0] * d[..., 0]).float()
-    acc = (d[..., 1] * d[..., 1] + acc.double()).float()
-    return (d[..., 2] * d[..., 2] + acc.double()).float()
-
-
 def knn_hash(query: torch.Tensor, hmap: VoxelHashMap, k: int = 5,
              bucket_cap: int = 16):
     """k-NN among the first `bucket_cap` points of each of the 27 buckets
@@ -145,7 +135,7 @@ def knn_hash(query: torch.Tensor, hmap: VoxelHashMap, k: int = 5,
     ok = sl < end[..., None]
     ci = torch.where(ok, sl, torch.zeros_like(sl)).reshape(q_n, -1)
     cv = ok.reshape(q_n, -1)
-    d = _sum_sq3(hmap.points[ci] - query[:, None, :])
+    d = sum_sq3(hmap.points[ci] - query[:, None, :])
     d = torch.where(cv, d, torch.full_like(d, _INF))
     d, sel = torch.sort(d, dim=1, stable=True)
     idx = torch.gather(ci, 1, sel[:, :k])

@@ -33,6 +33,18 @@ def norm3(p: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x * x + y * y + z * z)
 
 
+def sum_sq3(diff: torch.Tensor) -> torch.Tensor:
+    """sum(diff^2) over the last axis of size 3 as the JAX package's CPU
+    program evaluates it: x^2, then two fused multiply-adds (emulated in
+    float64: a float32 product is exact there, so only the sum rounds).
+    A plain ((x^2 + y^2) + z^2) differs in the last bit for ~20% of
+    points, which reorders near-ties."""
+    d = diff.double()
+    acc = (d[..., 0] * d[..., 0]).float()
+    acc = (d[..., 1] * d[..., 1] + acc.double()).float()
+    return (d[..., 2] * d[..., 2] + acc.double()).float()
+
+
 def compute_ring(points: torch.Tensor, valid: torch.Tensor, n_scan: int):
     """Per-point ring id from the elevation angle, per-sensor formulas for
     16/32/64-beam Velodynes (laserPretreatment.cpp:33-60). Returns

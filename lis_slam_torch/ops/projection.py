@@ -15,10 +15,20 @@ from typing import NamedTuple
 import torch
 
 from ..config import SensorConfig
-from .pretreatment import norm3
+from .pretreatment import norm3, sum_sq3
 
 _INVALID_RANGE = 1e9
 _KEY_INVALID = 2**31 - 1
+
+
+class RangeImage(NamedTuple):
+    """Projected scan on the fixed (N_SCAN, H) grid."""
+
+    rng: torch.Tensor  # (N, H) float32 range; _INVALID_RANGE where empty
+    xyz: torch.Tensor  # (N, H, 3)
+    intensity: torch.Tensor  # (N, H)
+    time: torch.Tensor  # (N, H) per-point relative time
+    mask: torch.Tensor  # (N, H) bool
 
 
 class ExtractedCloud(NamedTuple):
@@ -33,6 +43,49 @@ class ExtractedCloud(NamedTuple):
     src: torch.Tensor  # (N, H) raw-point index of each slot, -1 padded
 
 
+def pixel_columns(points: torch.Tensor, h: int) -> torch.Tensor:
+    """(P,) int32 range-image column of each point (projectPointCloud's
+    horizon angle); may fall outside [0, h) for degenerate points."""
+    horizon_angle = torch.atan2(points[:, 0], points[:, 1]) * (180.0 / math.pi)
+    col = (-torch.round((horizon_angle - 90.0) / (360.0 / h))).to(torch.int32)
+    col = col + h // 2
+    return torch.where(col >= h, col - h, col)
+
+
+def range_image(ext: ExtractedCloud,
+                time: torch.Tensor | None = None) -> RangeImage:
+    """The (N_SCAN, H) grid image of the compacted winners: each slot goes
+    back to its pixel (row, col). `time` is the slots' relative time (N, H)
+    (zeros without it; RangeNet does not read it). The range is rounded as
+    the JAX package's CPU program rounds it (fused multiply-adds, a
+    correctly rounded square root, which torch's float32 sqrt on the CPU
+    is not always), so RangeNet's input matches it bit for bit; the
+    projection's sort key keeps norm3."""
+    n, h = ext.mask.shape
+    rows = torch.arange(n, device=ext.mask.device)[:, None].expand(n, h)
+    dest = torch.where(ext.mask, rows * h + ext.col,
+                       torch.full_like(ext.col, n * h)).reshape(-1).long()
+    if time is None:
+        time = torch.zeros_like(ext.intensity)
+    payload = torch.cat([ext.xyz, ext.intensity[..., None], time[..., None]],
+                        dim=-1).reshape(n * h, 5)
+    grid = torch.zeros((n * h + 1, 5), dtype=torch.float32,
+                       device=payload.device)
+    grid[dest] = payload
+    grid = grid[: n * h]
+    hit = torch.zeros(n * h + 1, dtype=torch.bool, device=payload.device)
+    hit[dest] = True
+    hit = hit[: n * h]
+    rng = torch.sqrt(sum_sq3(grid[:, :3]).double()).float()
+    return RangeImage(
+        rng=torch.where(hit, rng, torch.full_like(rng, _INVALID_RANGE))
+        .reshape(n, h),
+        xyz=grid[:, :3].reshape(n, h, 3),
+        intensity=grid[:, 3].reshape(n, h),
+        time=grid[:, 4].reshape(n, h),
+        mask=hit.reshape(n, h))
+
+
 def project_and_extract(points: torch.Tensor, intensity: torch.Tensor,
                         ring: torch.Tensor, rel_time: torch.Tensor,
                         valid: torch.Tensor, cfg: SensorConfig,
@@ -40,24 +93,17 @@ def project_and_extract(points: torch.Tensor, intensity: torch.Tensor,
     """Project onto the (N_SCAN, H) grid and compact each row's winners to
     its front, via ONE stable sort on a packed (pixel, quantized-range) key:
     the first entry per pixel is the nearest-range winner, and winners come
-    out in row-major pixel order. Returns (None, ExtractedCloud); the range
-    image (`want_image=True`) is not needed by the front end and is not
-    ported."""
-    if want_image:
-        raise NotImplementedError("the range image is not ported")
+    out in row-major pixel order. Returns (RangeImage or None,
+    ExtractedCloud): the grid image of the winners (`want_image=True`,
+    what RangeNet reads; the front end skips it)."""
     n, h = cfg.n_scan, cfg.horizon_scan
     dev = points.device
-    x, y = points[:, 0], points[:, 1]
     rng = norm3(points)
     ok = valid & (rng >= cfg.lidar_min_range) & (rng <= cfg.lidar_max_range)
     ok &= (ring >= 0) & (ring < n)
     if cfg.downsample_rate > 1:
         ok &= ring % cfg.downsample_rate == 0
-    ang_res = 360.0 / h
-    horizon_angle = torch.atan2(x, y) * (180.0 / math.pi)
-    col = (-torch.round((horizon_angle - 90.0) / ang_res)).to(torch.int32)
-    col = col + h // 2
-    col = torch.where(col >= h, col - h, col)
+    col = pixel_columns(points, h)
     ok &= (col >= 0) & (col < h)
 
     pix = ring * h + col
@@ -106,4 +152,5 @@ def project_and_extract(points: torch.Tensor, intensity: torch.Tensor,
         src=torch.where(mask, comp[..., 6].to(torch.int32),
                         torch.full_like(counts[:1], -1)),
     )
-    return None, ext
+    img = range_image(ext, comp[..., 5]) if want_image else None
+    return img, ext

@@ -18,10 +18,13 @@ which submaps exist when a verification is dispatched or a loop factor is
 added, so it is what lets the port's loop factors be compared with the
 reference's. A "fetch" is a `.cpu()` of the window's tensors.
 
+Labels come from `gt_labels` ("gt"), from RangeNet inference on
+keyframes ("infer": cfg.semantic.enabled and no labels; the in-repo
+checkpoint unless `rangenet_params` are given), or not at all ("none").
+
 Not ported (each raises NotImplementedError): the IMU fusion inside
-SemanticSlam (cfg.imu.use_imu), GPS (`add_gps`), RangeNet inference
-(`rangenet_params`, or cfg.semantic.enabled without `gt_labels`),
-`debug_dir`, and `predict_imu_rate`.
+SemanticSlam (cfg.imu.use_imu), GPS (`add_gps`), `debug_dir`, and
+`predict_imu_rate`.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ..loop import epsc
 from ..mapping import submap as sm
 from ..ops import icp as icp_ops
 from ..ops import knn, scan_match, voxel
+from ..semantic import inference as sem_inf
 from ..utils import device as devices, profiling, se3, se3_np
 from . import odometry, semantic_odometry as semo, trajectory
 
@@ -94,15 +98,22 @@ def init_fused_state(cfg: SlamConfig, device: torch.device | str = "cuda"
 
 
 def slam_step(fstate: FusedState, scan: odometry.ScanInput,
-              lab_raw: torch.Tensor | None, cfg: SlamConfig, lab_mode: str):
+              lab_raw: torch.Tensor | None, cfg: SlamConfig, lab_mode: str,
+              model=None, infer_cfg: SlamConfig | None = None):
     """One scan: the front-end step, and on keyframes the semantic
-    refinement (lab_mode "gt": labels from `lab_raw`, per raw point; "none":
-    no semantics), the keyframe class clouds and the loop descriptors.
-    Returns (state, StepOut)."""
-    if lab_mode not in ("gt", "none"):
-        raise NotImplementedError(
-            f"lab_mode {lab_mode!r}: only 'gt' and 'none' are ported "
-            "(RangeNet inference is not)")
+    refinement (lab_mode "gt": labels from `lab_raw`, per raw point;
+    "infer": labels inferred by the RangeNet `model` under `infer_cfg` on
+    the front end's range image; "none": no semantics), the keyframe class
+    clouds and the loop descriptors. Returns (state, StepOut).
+
+    The JAX package infers on a second projection of the pretreated,
+    undeskewed scan; the front end's projection holds the same winners
+    unless the front end deskews the scan, where the net here reads the
+    deskewed cloud that the features come from."""
+    if lab_mode not in ("gt", "infer", "none"):
+        raise ValueError(f"lab_mode {lab_mode!r}")
+    if lab_mode == "infer" and (model is None or infer_cfg is None):
+        raise ValueError("lab_mode 'infer' needs model and infer_cfg")
     odom2, out, fc, ext = odometry._odom_step_impl(fstate.odom, scan, cfg)
     clouds = dict(
         corner_xyz=fc.corner_xyz, corner_mask=fc.corner_mask,
@@ -121,7 +132,12 @@ def slam_step(fstate: FusedState, scan: odometry.ScanInput,
     sem, lf, lr = fstate.sem, fstate.last_frontend, fstate.last_refined
     dev = out.pose.device
     qk = cfg.submap.keyframe_class_capacity
-    if lab_mode == "gt":
+    if lab_mode == "infer":
+        # RangeNet reads the front end's projection; only its winners get
+        # labels, which is all the gathers below read
+        lab_raw = sem_inf.infer_winner_labels(model, ext,
+                                              scan.points.shape[0], infer_cfg)
+    if lab_mode != "none":
         # the front end's projection carries each slot's raw index, so the
         # labels gather onto the grid without a second projection
         sscan = semo.semantic_scan_from_ext(ext, lab_raw, cfg)
@@ -277,14 +293,29 @@ class SemanticSlam:
             raise NotImplementedError(
                 "IMU fusion inside SemanticSlam (cfg.imu.use_imu) is not "
                 "ported; pipeline.lio.LioOdometry runs the LIO front end")
-        if rangenet_params is not None:
-            raise NotImplementedError(
-                "RangeNet inference is not ported: pass gt_labels")
         if debug_dir is not None:
             raise NotImplementedError("the debug dump is not ported")
         self.cfg = cfg
         self.pose_hook = pose_hook
         self.fstate = init_fused_state(cfg, self.device)
+        # semantic inference (semanticFusionNode): with semantics enabled,
+        # RangeNet labels each keyframe; its weights are `rangenet_params`
+        # (a flax-layout tree, architecture cfg.semantic) or the in-repo
+        # checkpoint with its own architecture
+        self.model, self._infer_cfg = None, None
+        if cfg.semantic.enabled:
+            if rangenet_params is not None:
+                self.model = sem_inf.load_model(rangenet_params,
+                                                cfg.semantic, self.device)
+                self._infer_cfg = cfg
+            else:
+                try:
+                    wrapped = sem_inf.SemanticInference(cfg,
+                                                        device=self.device)
+                    self.model, self._infer_cfg = (wrapped.model,
+                                                   wrapped.cfg)
+                except FileNotFoundError:
+                    pass  # no checkpoint: labels must be fed
         self.loop_detector = epsc.LoopDetector(cfg.loop)
         self.collector = sm.SubMapCollector(cfg.submap)
         # The LM runs on the host whatever `device` is, on purpose: its
@@ -329,7 +360,8 @@ class SemanticSlam:
                      **imu_window) -> torch.Tensor:
         """Feed one scan (a ScanInput on the pipeline's device); returns its
         front-end pose6 on the device. `gt_labels` are per-raw-point
-        learning-class ids. `timestamp` defaults to scan_idx *
+        learning-class ids; without them, RangeNet labels the keyframes
+        when the system holds a model. `timestamp` defaults to scan_idx *
         scan_period."""
         if imu_window:
             raise NotImplementedError(
@@ -343,17 +375,15 @@ class SemanticSlam:
             buf[:n] = np.asarray(gt_labels)[:n]
             lab_raw = torch.from_numpy(buf).to(self.device)
             lab_mode = "gt"
-        elif self.cfg.semantic.enabled:
-            raise NotImplementedError(
-                "cfg.semantic.enabled without gt_labels runs RangeNet in the "
-                "JAX package; RangeNet is not ported")
+        elif self.model is not None:
+            lab_raw, lab_mode = None, "infer"
         else:
             lab_raw, lab_mode = None, "none"
         if lab_mode != "none":
             self.collector.merge_classes = True
         with self.timer.stage("odom_step"):
             self.fstate, out = slam_step(self.fstate, scan, lab_raw, self.cfg,
-                                         lab_mode)
+                                         lab_mode, self.model, self._infer_cfg)
         self._pending.append(_PendingScan(self._scan_idx, t, out))
         self._scan_idx += 1
         if len(self._pending) >= max(1, self.cfg.runtime.drain_every):

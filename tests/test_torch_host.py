@@ -2,11 +2,14 @@
 
 The port cannot import lis_slam_tpu (its package __init__ imports JAX, and
 the GPU machine has none), so config.py, labels.py, io/synthetic.py and
-utils/se3_np.py are copied into lis_slam_torch/. These tests pin the copies
-to the originals.
+utils/se3_np.py are copied into lis_slam_torch/, and so is the RangeNet
+checkpoint weights/rangenet_synthetic_slim.npz (the port reads no file of
+the JAX package). These tests pin the copies to the originals.
 """
 
 import dataclasses
+import hashlib
+import os
 from pathlib import Path
 
 import numpy as np
@@ -21,7 +24,10 @@ from lis_slam_tpu.io import synthetic as jsyn
 from lis_slam_torch import config as tcfg, labels as tlabels
 from lis_slam_torch.io import synthetic as tsyn
 
-_COPIES = ["config.py", "labels.py", "io/synthetic.py", "utils/se3_np.py"]
+_COPIES = ["config.py", "labels.py", "io/synthetic.py", "utils/se3_np.py",
+           "weights/rangenet_synthetic_slim.npz"]
+CHECKPOINT_SHA256 = (
+    "1306bde1bb466a8c6e25331ba48d3cf997552b9b7d19738813f4a1f11b0d3336")
 
 
 @pytest.mark.parametrize("rel", _COPIES)
@@ -65,3 +71,17 @@ def test_render_scan_bitwise_equal():
               "imu_time"):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
                                       err_msg=f)
+
+
+def test_checkpoint_copy_hash():
+    """The port's default checkpoint is its own file, with the hash of the
+    JAX package's."""
+    from lis_slam_torch.semantic import weights as W
+
+    path = os.path.realpath(W.DEFAULT_CHECKPOINT)
+    assert path.startswith(os.path.realpath(
+        Path(lis_slam_torch.__file__).parent) + os.sep)
+    for p in (path, Path(lis_slam_tpu.__file__).parent
+              / "weights/rangenet_synthetic_slim.npz"):
+        with open(p, "rb") as f:
+            assert hashlib.sha256(f.read()).hexdigest() == CHECKPOINT_SHA256

@@ -13,7 +13,8 @@ labels and injected yaw drift.
 - The whole lap plus 20 scans past the closure (`slow`: on a shared 8-core CPU
   the JAX reference alone took 209-259 s and the port 252-398 s, run side
   by side): both detect >= 1 loop, submaps within +-1, ATE as above.
-- The paths the port does not run raise NotImplementedError.
+- The paths the port does not run raise NotImplementedError; RangeNet
+  inference sets up as the JAX package's does.
 """
 
 import dataclasses
@@ -28,9 +29,12 @@ import torch
 
 from lis_slam_tpu.pipeline import driver as jdriver, slam as jslam
 from lis_slam_tpu.pipeline import trajectory as jtraj
+from lis_slam_tpu.config import SemanticConfig as JSemanticConfig
+from lis_slam_tpu.semantic import weights as JW
 from lis_slam_torch.config import SemanticConfig, lio_config
 from lis_slam_torch.pipeline import (convert, driver, lio, odometry,
                                      semantic_odometry, slam, trajectory)
+from lis_slam_torch.semantic import weights as W
 from lis_slam_torch.utils import profiling, se3_np
 
 from _torch_plaza import render_plaza, tiny_cfgs
@@ -205,12 +209,16 @@ def test_loop_closure_run_matches_jax():
 
 
 def test_unported_paths_raise():
-    _jcfg, tcfg = cfgs()
+    """IMU, GPS, debug_dir and predict_imu_rate raise NotImplementedError.
+    RangeNet inference is ported: `rangenet_params` (with semantics on),
+    and cfg.semantic.enabled without them (the in-repo checkpoint and its
+    architecture), set up the same weights and inference config as the JAX
+    package's SemanticSlam; a scan without labels then runs lab_mode
+    "infer" on its keyframe."""
+    jcfg, tcfg = cfgs()
     with pytest.raises(NotImplementedError):
         slam.SemanticSlam(tcfg.replace(imu=dataclasses.replace(
             tcfg.imu, use_imu=True)), device="cpu")
-    with pytest.raises(NotImplementedError):
-        slam.SemanticSlam(tcfg, rangenet_params={}, device="cpu")
     with pytest.raises(NotImplementedError):
         slam.SemanticSlam(tcfg, debug_dir="/nonexistent", device="cpu")
     system = slam.SemanticSlam(tcfg, device="cpu")
@@ -223,12 +231,41 @@ def test_unported_paths_raise():
     sin = driver.pad_scan(scans[0].points[scans[0].valid], tcfg)
     with pytest.raises(NotImplementedError):
         system.process_scan(sin, imu_time=np.zeros(4))
-    sem_on = slam.SemanticSlam(tcfg.replace(semantic=SemanticConfig(
-        enabled=True)), device="cpu")
-    with pytest.raises(NotImplementedError):  # would run RangeNet
-        sem_on.process_scan(sin)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # "infer" needs a model
         slam.slam_step(system.fstate, sin, None, tcfg, "infer")
+
+    sem_cfg, tree = W.load_checkpoint()
+    jsem_cfg, jtree = JW.load_checkpoint()
+    pairs = {
+        "params": (slam.SemanticSlam(tcfg.replace(semantic=sem_cfg),
+                                     rangenet_params=tree, device="cpu"),
+                   jslam.SemanticSlam(jcfg.replace(semantic=jsem_cfg),
+                                      rangenet_params=jtree)),
+        "enabled": (slam.SemanticSlam(tcfg.replace(semantic=SemanticConfig(
+            enabled=True)), device="cpu"),
+                    jslam.SemanticSlam(jcfg.replace(semantic=JSemanticConfig(
+                        enabled=True)))),
+    }
+    for name, (ts, js) in pairs.items():
+        assert ts.model is not None and js.model is not None, name
+        assert (dataclasses.asdict(ts._infer_cfg)
+                == dataclasses.asdict(js._infer_cfg)), name
+        want = W.to_torch_state(js.model_vars, ts._infer_cfg.semantic)
+        for k, v in ts.model.state_dict().items():
+            torch.testing.assert_close(v, want[k].to(v.dtype), rtol=0,
+                                       atol=0, msg=k)
+    # parameters without semantics on label nothing, as in the JAX package
+    assert slam.SemanticSlam(tcfg, rangenet_params=tree,
+                             device="cpu").model is None
+    assert jslam.SemanticSlam(jcfg, rangenet_params=jtree).model is None
+
+    sem_on = pairs["enabled"][0]
+    sem_on.process_scan(sin)
+    out = sem_on._pending[0].out
+    assert out.is_keyframe and sem_on.collector.merge_classes
+    lab = out.lab_surf[out.surf_mask]
+    assert float((lab > 0).float().mean()) > 0.5
+    assert int(out.class_mask.sum()) > 1000
 
 
 def test_entry_points_default_to_the_card():
