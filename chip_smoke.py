@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (lis_slam_torch) on one NVIDIA GPU.
 
-Drives the port's front-end odometry step, its LiDAR-inertial path and
-the full SLAM system, with both hand-written CUDA kernels, through these
-phases (one or more lines each):
+Drives the port's front-end odometry step, its LiDAR-inertial path, the
+batched multi-sequence replay and the full SLAM system, with the three
+hand-written CUDA kernels, through these phases (one or more lines each):
 
   1. device - torch and CUDA versions, the card's name and power limit;
-  2. build  - nvcc builds csrc/knn.cu (K1, exact kNN) and csrc/gn.cu (K2,
-              fused Gauss-Newton accumulation) from the checkout;
+  2. build  - nvcc builds csrc/knn.cu (K1, exact kNN), csrc/gn.cu (K2,
+              fused Gauss-Newton accumulation) and csrc/gn_solve.cu (K3,
+              the scheduled solver's GN solve and masked update) from the
+              checkout, at once;
   3. K1     - kernel against its plain PyTorch version (bit-equal) at the
               front end's shapes, on a morton-ordered map built by
               voxel_merge_aged with queries morton-sorted as scan_to_map
@@ -32,7 +34,21 @@ phases (one or more lines each):
   7. greedy - the first 10 scans of the main circuit with the
               reference-faithful greedy feature selection, against the
               vectorized selection's run;
-  8. slam   - the full SLAM system (pipeline/slam.py SemanticSlam: front
+  8. batched - parallel/batched.replay_batched at full width: 8 lanes of
+              24 circuit scans (lanes 0 and 1 the same sequence, lane
+              b >= 2 from scan 4 (b - 1)), default config (uniform step,
+              8 iterations, refresh at 3, keyframe merge every 4 steps),
+              under both GN backends (pallas: K1 + K2 + K3; xla: K1 + K3):
+              lanes 0/1 bit-equal, every lane's ATE; lane 0 with a merge
+              every scan against odometry.odom_step_uniform; the uniform
+              step's ATE beside odom_step's; no host sync inside a warm
+              batched_odom_step (sync debug mode "error"); K1/K2/K3
+              launches and all CUDA activities of one step at B = 1 and
+              B = 8 (equal); aggregate scans/s at B = 1, 8, 32 beside
+              replay_odometry's, peak memory, the step's device busy share;
+              then K3 against its plain version on the normal equations
+              recorded during a step, and K1 / K2 at the batched shapes;
+  9. slam   - the full SLAM system (pipeline/slam.py SemanticSlam: front
               end, semantic refinement, submaps, EPSC loop closure, ICP
               verification, pose graph) on the JAX bench's plaza lap
               (bench.py:123-258): 100 HDL-64 scans of the exactly periodic
@@ -43,28 +59,30 @@ phases (one or more lines each):
               untimed, with its host syncs counted by stage; then K1 and
               K2 at the back end's shapes against their plain versions,
               and the pose-graph LM on the card and on the host;
-  9. semantic - RangeNet: the in-repo slim checkpoint labelling one plaza
+  10. semantic - RangeNet: the in-repo slim checkpoint labelling one plaza
               scan (64 x 1800) per raw point against ground truth, and
               the keyframe path's labelling of the front end's projection;
               the full-size darknet53 (default SemanticConfig, seeded
               random weights) at 64 x 2048 x 5, batch 1, bf16: device and
               call ms per inference, parameters, FLOPs, TFLOP/s against
               the bf16 peak, argmax against float32;
- 10. slam_infer - the slam lap with cfg.semantic.enabled and no labels,
+ 11. slam_infer - the slam lap with cfg.semantic.enabled and no labels,
               so the checkpoint labels every keyframe, held to the JAX
               package's run of the same mode; then 40 lap scans with the
               darknet53 weights as rangenet_params (scans/s).
 
 Every kernel case (K1 at each path's shapes, K2's one launch per GN
-iteration at the front end's, the LIO path's and the refinement's) is
-timed four ways: device ms per call (torch.profiler's CUDA activities,
+iteration at the front end's, the LIO path's, the refinement's and the
+batched replay's, K3 at the batched replay's) is timed four ways: device ms per call (torch.profiler's CUDA activities,
 summed: the kernel's own time), call ms (CUDA events around back-to-back
 calls: the host's pace where it is the slower), plain ms (its plain
 version on the card) and its bound (bytes moved once over 3.35 TB/s, or
 the operations these inputs need over 67 TFLOP/s fp32, the larger); K1
 also prints the share of map tiles it skipped. No single PyTorch call
-computes either kernel's function, so library_ms is null with the
+computes K1's or K2's function, so their library_ms is null with the
 reason; torch.cdist + torch.topk is timed beside K1 as information only.
+K3's library_ms is torch.linalg.eigh + torch.linalg.solve on the same
+(B, 6, 6) normal equations, part of its function.
 With --baseline DIR (another checkout, e.g. the parent commit unpacked)
 each case also times that checkout's kernels on the same inputs, in
 turns: baseline, this, this, baseline.
@@ -96,6 +114,9 @@ K1_SOURCE = "lis_slam_torch/csrc/knn.cu"
 K2_SOURCE = "lis_slam_torch/csrc/gn.cu"
 K1_REPLACES = "lis_slam_tpu/ops/pallas_knn.py:46"
 K2_REPLACES = "lis_slam_tpu/ops/pallas_gn.py:62"
+K3_SOURCE = "lis_slam_torch/csrc/gn_solve.cu"
+# no Pallas kernel: the XLA solve and masked update it replaces
+K3_REPLACES = "lis_slam_tpu/ops/scan_match.py:181"
 KNN_RTOL = 1e-5  # distances: same float32 ops in the same order both sides
 GN_ATOL = 2e-4  # H, g scaled by their max, as tests/test_pallas_gn.py
 ATE_MAX = 0.1  # m, per run
@@ -245,17 +266,20 @@ def _gn_flops(k: int) -> int:
     return 480 + 18 * k
 
 
-def _k2_bound(clouds, k):
+def _k2_bound(clouds, k, lanes=1, f64=False):
     """K2's bound for one GN iteration over `clouds` ((pts, mask, weight
-    or None) triples): pts, mask, cand (k x 3 f32) and cand_ok read once
-    per query, the weight only where one is passed, two 64-float scalar
-    rows, 43 floats out; _gn_flops per masked-in query (an estimate)."""
-    nbytes = 2 * 64 * 4 + 43 * 4
+    or None) triples, the lanes' queries flattened): pts, mask, cand (k x
+    3 f32) and cand_ok read once per query, the weight only where one is
+    passed, two 64-float scalar rows and 43 floats out per lane;
+    _gn_flops per masked-in query (an estimate). With `f64` (the lanes
+    path's float64 rows) the float32 peak bounds them from below."""
+    nbytes = lanes * (2 * 64 * 4 + 43 * 4)
     for p, _m, w in clouds:
         nbytes += p.shape[0] * (12 + 1 + 13 * k + (0 if w is None else 4))
     n_in = sum(int(m.sum()) for _p, m, _w in clouds)
     return _bound(nbytes, n_in * _gn_flops(k),
-                  f"~{_gn_flops(k)} (estimated) x masked-in queries")
+                  f"~{_gn_flops(k)} (estimated) x masked-in queries"
+                  + (" in float64 (at the float32 peak)" if f64 else ""))
 
 
 K1_NO_LIBRARY = ("no single PyTorch call: torch.cdist + torch.topk is two "
@@ -263,7 +287,7 @@ K1_NO_LIBRARY = ("no single PyTorch call: torch.cdist + torch.topk is two "
 K2_NO_LIBRARY = ("no single PyTorch call computes LOAM's per-query line / "
                  "plane fit reduced to H, g and n_valid")
 # per-shape timings of each kernel, filled by the phases
-CASES: dict[str, list] = {"K1": [], "K2": []}
+CASES: dict[str, list] = {"K1": [], "K2": [], "K3": []}
 BASELINE = None  # (knn_cuda, gn_cuda) of --baseline's checkout
 
 
@@ -319,7 +343,7 @@ def phase_build(out_dir: str) -> None:
     """Build every kernel's source at once (one nvcc each, in threads)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from lis_slam_torch.ops import cuda_build, gn_cuda, knn_cuda
+    from lis_slam_torch.ops import cuda_build, gn_cuda, gn_solve, knn_cuda
 
     def timed(lib_fn):
         t = time.perf_counter()
@@ -327,7 +351,8 @@ def phase_build(out_dir: str) -> None:
         return time.perf_counter() - t
 
     kernels = (("knn", knn_cuda._lib, knn_cuda._FLAGS),
-               ("gn", gn_cuda._lib, gn_cuda._FLAGS))
+               ("gn", gn_cuda._lib, gn_cuda._FLAGS),
+               ("gn_solve", gn_solve._lib, gn_solve._FLAGS))
     with ThreadPoolExecutor(len(kernels)) as pool:
         builds = [pool.submit(timed, lib_fn) for _n, lib_fn, _f in kernels]
     for (name, _lib_fn, flags), build in zip(kernels, builds):
@@ -783,16 +808,19 @@ def phase_main(scans, gt, cfg, dev, out_dir):
 
 
 def _launches():
-    from lis_slam_torch.ops import gn_cuda, knn_cuda
+    """(K1, K2, K3) launch counts."""
+    from lis_slam_torch.ops import gn_cuda, gn_solve, knn_cuda
 
-    return knn_cuda.knn.launches, gn_cuda.gn_iteration_vec.launches
+    return (knn_cuda.knn.launches, gn_cuda.gn_iteration_vec.launches,
+            gn_solve.solve.launches)
 
 
 def _zero_launches():
-    from lis_slam_torch.ops import gn_cuda, knn_cuda
+    from lis_slam_torch.ops import gn_cuda, gn_solve, knn_cuda
 
     knn_cuda.knn.launches = 0
     gn_cuda.gn_iteration_vec.launches = 0
+    gn_solve.solve.launches = 0
 
 
 def _accuracy(tag, poses, gt):
@@ -1535,6 +1563,454 @@ def phase_slam_infer(seq, gt, darknet, dev, out_dir):
     return {"slam_infer": counts, "slam_infer_darknet53": counts_full}
 
 
+# ---------------------------------------------------------------------------
+# batched: multi-sequence replay through the uniform step (K1 + K2 + K3)
+# ---------------------------------------------------------------------------
+
+BATCH_LANES = 8
+BATCH_SCANS = 24
+BATCH_RATE_LANES = (1, 8, 32)
+BATCH_RATE_STEPS = 16  # timed steps per rate, after BATCH_RATE_WARMUP
+BATCH_RATE_WARMUP = 4
+BATCH_SINGLE_ATOL = 5e-3  # m, lane 0 (kf every scan) vs odom_step_uniform
+# K3 against its plain version on recorded normal equations
+K3_POSE_ATOL = 1e-5
+K3_PROJ_ATOL = 1e-4
+K3_NO_LIBRARY = ("two PyTorch calls compute part of it: torch.linalg.eigh + "
+                 "torch.linalg.solve over (B, 6, 6), timed as library_ms")
+
+
+def _lane_starts(lanes: int, n_scans: int):
+    """Lanes 0 and 1 start at scan 0; lane b >= 2 at 4 (b - 1), wrapped so
+    that BATCH_SCANS scans remain."""
+    room = n_scans - BATCH_SCANS + 1
+    return [0, 0][:lanes] + [(4 * (b - 1)) % room for b in range(2, lanes)]
+
+
+def _batched_cfg(cfg, backend, kf_every=None):
+    import dataclasses
+
+    c = cfg.replace(matching=dataclasses.replace(cfg.matching,
+                                                 gn_backend=backend))
+    if kf_every is not None:
+        c = c.replace(runtime=dataclasses.replace(c.runtime,
+                                                  batched_kf_every=kf_every))
+    return c
+
+
+def _warm_lanes(scans, cfg, lanes, steps):
+    """States of `lanes` lanes after `steps` batched steps (on the
+    replay's cadence), and the stacked scans of the steps that follow."""
+    from lis_slam_torch.parallel import batched
+
+    starts = _lane_starts(lanes, len(scans))
+    stacked = [batched.stack_scans([scans[s + i] for s in starts])
+               for i in range(BATCH_SCANS)]
+    kf_every = max(1, cfg.runtime.batched_kf_every)
+    states = batched.batched_init_state(cfg, lanes, scans[0].points.device)
+    for i in range(steps):
+        states, _ = batched.batched_odom_step(states, stacked[i], cfg,
+                                              allow_kf=(i % kf_every == 0))
+    return states, stacked
+
+
+def _step_kernels(scans, cfg, lanes):
+    """One warm batched step (a keyframe-merge step) under torch.profiler:
+    (CUDA activities by name, K1/K2/K3 launches, device busy ms, wall
+    ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from lis_slam_torch.parallel import batched
+
+    step = 2 * max(1, cfg.runtime.batched_kf_every)  # merges (i % K == 0)
+    states, stacked = _warm_lanes(scans, cfg, lanes, step)
+    # a second warm step of the same kind, so the allocator has the sizes
+    batched.batched_odom_step(states, stacked[step], cfg)
+    torch.cuda.synchronize()
+    _zero_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        batched.batched_odom_step(states, stacked[step], cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    launches = _launches()
+    names: dict[str, int] = {}
+    busy, ops = 0.0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n = e.name.split("(")[0][-80:]
+            names[n] = names.get(n, 0) + 1
+            busy += (e.time_range.end - e.time_range.start) / 1e3
+        elif e.name.startswith("aten::"):
+            ops += 1
+    return names, launches, busy, wall, ops
+
+
+def _rate(scans, cfg, lanes):
+    """Aggregate scans/s of `lanes` lanes over BATCH_RATE_STEPS batched
+    steps on the replay's cadence, after BATCH_RATE_WARMUP, and the peak
+    device memory of the run."""
+    import torch
+    from lis_slam_torch.parallel import batched
+
+    torch.cuda.reset_peak_memory_stats()
+    states, stacked = _warm_lanes(scans, cfg, lanes, BATCH_RATE_WARMUP)
+    kf_every = max(1, cfg.runtime.batched_kf_every)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(BATCH_RATE_WARMUP, BATCH_RATE_WARMUP + BATCH_RATE_STEPS):
+        states, _ = batched.batched_odom_step(states, stacked[i], cfg,
+                                              allow_kf=(i % kf_every == 0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return (lanes * BATCH_RATE_STEPS / wall,
+            torch.cuda.max_memory_allocated())
+
+
+def _check_no_syncs(scans, cfg):
+    """batched_odom_step under torch.cuda.set_sync_debug_mode("error"),
+    warm, on a merge step and a merge-free step: any synchronizing CUDA
+    call raises."""
+    import torch
+    from lis_slam_torch.parallel import batched
+
+    kf_every = max(1, cfg.runtime.batched_kf_every)
+    states, stacked = _warm_lanes(scans, cfg, BATCH_LANES, kf_every)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(kf_every, kf_every + 2):
+            states, out = batched.batched_odom_step(
+                states, stacked[i], cfg, allow_kf=(i % kf_every == 0))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return 2
+
+
+def _record_k3(scans, cfg):
+    """The normal equations and lane states K3 was called with during one
+    warm batched step (B = BATCH_LANES), recorded through the module
+    attribute the solver calls."""
+    from lis_slam_torch.ops import gn_solve
+    from lis_slam_torch.parallel import batched
+
+    states, stacked = _warm_lanes(scans, cfg, BATCH_LANES, 3)
+    calls, solve = [], gn_solve.solve
+
+    def record(hg, st, c):
+        calls.append((hg.clone(), type(st)(*(t.clone() for t in st))))
+        return solve(hg, st, c)
+
+    record.launches = solve.launches  # the K3 wrapper counts on this name
+    gn_solve.solve = record
+    try:
+        batched.batched_odom_step(states, stacked[3], cfg, allow_kf=False)
+    finally:
+        gn_solve.solve = solve
+        solve.launches = record.launches
+    return calls, states, stacked[3]
+
+
+def _k3_bound(lanes: int):
+    """K3's bound for `lanes` lanes: hg (43 f32), the lane state in and
+    out (pose 6 + proj 36 f32, two bools, two int32, two f32) and the
+    rows (128 f32) each moved once; ~6 sweeps x 15 rotations x 80 flops of
+    the Jacobi per lane (an estimate) over the 67 TFLOP/s float32 peak
+    (the float64 rate is lower, so this bounds from below)."""
+    state = 4 * (6 + 36) + 2 + 4 * 2 + 4 * 2
+    nbytes = lanes * (43 * 4 + 2 * state + 128 * 4)
+    return _bound(nbytes, lanes * 6 * 15 * 80,
+                  "~6 x 15 x 80 (estimated) x lanes")
+
+
+def _check_k3(calls, cfg):
+    """K3 against its plain version on every recorded call: flags and it
+    equal, pose within K3_POSE_ATOL, proj within K3_PROJ_ATOL. Then its
+    times at the batched shape (CASES["K3"]), with torch.linalg.eigh +
+    torch.linalg.solve on the same (B, 6, 6) as the library pair."""
+    import torch
+    from lis_slam_torch.ops import gn_solve
+
+    err = e_proj = e_rows = 0.0
+    for hg, st in calls:
+        new, rows = gn_solve.solve(hg, st, cfg.matching)
+        ref, ref_rows = gn_solve.solve_plain(hg, st, cfg.matching)
+        torch.cuda.synchronize()
+        for f in ("degenerate", "converged", "n_valid", "it"):
+            check(bool(torch.equal(getattr(new, f), getattr(ref, f))),
+                  f"K3: {f} differs from the plain version: "
+                  f"{getattr(new, f).tolist()} vs {getattr(ref, f).tolist()}")
+        e_pose = float((new.pose - ref.pose).abs().max())
+        e_proj = max(e_proj, float((new.proj - ref.proj).abs().max()))
+        e_rows = max(e_rows, float((rows - ref_rows).abs().max()))
+        check(e_pose <= K3_POSE_ATOL and e_proj <= K3_PROJ_ATOL,
+              f"K3: pose err {e_pose}, proj err {e_proj}")
+        err = max(err, e_pose)
+    hg, st = calls[len(calls) // 2]
+    lanes = hg.shape[0]
+    log("K3", f"{len(calls)} recorded calls at B {lanes}: flags and it "
+        f"equal, max |pose - plain| {err:.3g}, proj err {e_proj:.3g}, rows "
+        f"err {e_rows:.3g}; degenerate lanes "
+        f"{int(ref.degenerate.sum())}, converged {int(ref.converged.sum())}")
+    H = hg[:, :36].reshape(-1, 6, 6)
+    g = hg[:, 36:42]
+
+    def library():
+        torch.linalg.eigh(H)
+        torch.linalg.solve(H, g)
+
+    case = _timed("K3", "K3", f"B{lanes} (43 + state)", "batched",
+                  lambda: gn_solve.solve(hg, st, cfg.matching),
+                  lambda: gn_solve.solve_plain(hg, st, cfg.matching),
+                  _k3_bound(lanes), library_none_reason=None)
+    case["library_ms"] = call_ms(library)
+    case["library_what"] = "torch.linalg.eigh + torch.linalg.solve (B, 6, 6)"
+    log("K3", f"library pair eigh + solve: {case['library_ms']:.4f} ms")
+    return err
+
+
+def _check_batched_kernels(states, scans_b, cfg):
+    """K1 and K2 at the batched shapes: the lanes' matched clouds of the
+    next scan against their maps, at the lanes' poses. K1 per lane
+    bit-equal to knn_plain (tiles skipped share); K2, which builds the
+    lanes' rows and sums in float64, per lane within GN_ATOL scaled of its
+    plain version in float64 with n_valid equal (the float32 plain
+    version's distance printed beside); both timed."""
+    import torch
+    from lis_slam_torch.ops import gn_cuda, gn_solve, knn_cuda
+    from lis_slam_torch.pipeline import odometry
+    from lis_slam_torch.utils import se3
+
+    m = cfg.matching
+    k = m.nn_cache_k
+    fc = odometry.preprocess(scans_b, cfg)
+    qc, qc_mask, qs, qs_mask = odometry._matched_clouds(fc, cfg)
+    qc, qc_mask, _ = _sorted_lanes(qc, qc_mask)
+    qs, qs_mask, _ = _sorted_lanes(qs, qs_mask)
+    pose = states.pose + torch.tensor(POSE_OFF, device=states.pose.device)
+    T = se3.pose_to_matrix(pose)
+    lanes = pose.shape[0]
+    err1, clouds = 0.0, {}
+    for mode, q, q_mask, ref, ref_mask in (
+            ("corner", qc, qc_mask, states.map_corner, states.map_corner_mask),
+            ("surf", qs, qs_mask, states.map_surf, states.map_surf_mask)):
+        qw = se3.transform_points(T, q).contiguous()
+        ref, ref_mask = ref.contiguous(), ref_mask.contiguous()
+        d, i, cand = knn_cuda.knn_lanes(qw, ref, ref_mask, k=k,
+                                        max_sq_dist=4.0)
+        dp, ip, xp = knn_cuda.knn_lanes_plain(qw, ref, ref_mask, k=k,
+                                              max_sq_dist=4.0)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(d, dp) and torch.equal(i, ip)
+                   and torch.equal(cand, xp)),
+              f"K1 batched {mode}: not bit-equal to the plain version")
+        done, total = knn_cuda.tiles_computed(qw, ref, ref_mask, k=k,
+                                              max_sq_dist=4.0)
+        bound = _k1_lanes_bound(qw, ref, ref_mask, k, 4.0)
+        _timed("K1", "K1", f"{mode} B{lanes} Q{q.shape[1]} "
+               f"N{ref.shape[1]} k{k} cap4", "batched",
+               lambda: knn_cuda.knn_lanes(qw, ref, ref_mask, k=k,
+                                          max_sq_dist=4.0),
+               lambda: knn_cuda.knn_lanes_plain(qw, ref, ref_mask, k=k,
+                                                max_sq_dist=4.0),
+               bound, library_none_reason=K1_NO_LIBRARY,
+               tiles_computed=done, tiles_total=total,
+               tiles_skipped_share=1.0 - done / max(total, 1))
+        log("K1", f"batched {mode} B{lanes}: every lane bit-equal to the "
+            f"plain version, tiles skipped {1.0 - done / max(total, 1):.4f}")
+        clouds[mode] = (q.contiguous(), q_mask.contiguous(), cand,
+                        (d < 4.0).contiguous(), None)
+    st = gn_solve.init_state(pose.contiguous())
+    rows = gn_solve.scalar_rows(st, m)
+    args = (rows, *clouds["corner"][:4], *clouds["surf"][:4], None, None, k)
+    hg = gn_cuda.gn_iteration_lanes(*args)
+    hg2 = gn_cuda.gn_iteration_lanes(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(hg, hg2)), "K2 batched: not reproducible")
+    cl = (*clouds["corner"][:4], *clouds["surf"][:4], None, None, k)
+    ref = gn_cuda.gn_iteration_lanes_plain(rows, *cl)
+    ref32 = gn_cuda.gn_iteration_lanes_plain(rows, *cl, torch.float32)
+    err2, err32 = 0.0, 0.0
+    for b in range(lanes):
+        Hk, gk = hg[b, :36].reshape(6, 6), hg[b, 36:42]
+        Hd, gd = ref[b, :36].reshape(6, 6), ref[b, 36:42]
+        check(int(hg[b, 42]) == int(ref[b, 42]),
+              f"K2 batched lane {b}: n_valid {int(hg[b, 42])} vs the float64 "
+              f"plain version's {int(ref[b, 42])}")
+        e_k = max(_scaled_err(Hk, gk, Hd, gd))
+        check(e_k <= GN_ATOL, f"K2 batched lane {b}: scaled error {e_k:.3g} "
+              f"against the float64 plain version")
+        err2 = max(err2, e_k)
+        err32 = max(err32, max(_scaled_err(ref32[b, :36].reshape(6, 6),
+                                           ref32[b, 36:42], Hd, gd)))
+    log("K2", f"batched B{lanes}: every lane within {GN_ATOL} scaled of the "
+        f"float64 plain version, n_valid equal; max scaled err {err2:.3g} "
+        f"(the float32 plain version: {err32:.3g})")
+    plain = lambda: gn_cuda.gn_iteration_lanes_plain(rows, *cl)  # noqa: E731
+    kb = _k2_bound([(clouds[m_][0].reshape(-1, 3),
+                     clouds[m_][1].reshape(-1), None)
+                    for m_ in ("corner", "surf")], k, lanes=lanes, f64=True)
+    _timed("K2", "K2", f"B{lanes} corner Q{qc.shape[1]} + surf "
+           f"Q{qs.shape[1]} k{k}", "batched",
+           lambda: gn_cuda.gn_iteration_lanes(*args), plain, kb,
+           library_none_reason=K2_NO_LIBRARY)
+    return err2
+
+
+def _k1_lanes_bound(q, ref, mask, k, cap):
+    """K1's bound over lanes: _k1_bound's bytes and pairs within the cap,
+    summed over the lanes of one launch."""
+    from lis_slam_torch.ops import knn
+
+    lanes, q_n, n = q.shape[0], q.shape[1], ref.shape[1]
+    nbytes = lanes * (q_n * 12 + n * 13 + q_n * k * 20)
+    pairs = 0
+    for b in range(lanes):
+        valid = ref[b][mask[b]]
+        pairs += sum(int((knn.sq_dist(q[b, s:s + 256], valid) < cap).sum())
+                     for s in range(0, q_n, 256))
+    return _bound(nbytes, 8 * pairs, "8 x pairs within the cap, all lanes")
+
+
+def _sorted_lanes(pts, mask):
+    from lis_slam_torch.ops import scan_match
+
+    return scan_match._morton_sort_queries(pts, mask, None)
+
+
+def phase_batched(scans, gt, cfg, dev, out_dir):
+    """Batched multi-sequence replay (parallel/batched.py) at full width:
+    B = 8 lanes of 24 circuit scans each (lanes 0 and 1 the same
+    sequence, lane b >= 2 from scan 4 (b - 1)), both GN backends; then the
+    single-sequence uniform step, the host-sync check, the launches and
+    CUDA activities per step at B = 1 and B = 8, aggregate scans/s at
+    B = 1, 8, 32 beside replay_odometry's, and the kernels at the batched
+    shapes."""
+    import torch
+    from lis_slam_torch.parallel import batched
+    from lis_slam_torch.pipeline import driver, odometry, trajectory
+
+    starts = _lane_starts(BATCH_LANES, len(scans))
+    seqs = [scans[s:s + BATCH_SCANS] for s in starts]
+    counts, results = {}, {}
+    for backend in ("pallas", "xla"):
+        c = _batched_cfg(cfg, backend)
+        _zero_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        poses = batched.replay_batched(seqs, c, device=dev)
+        wall = time.perf_counter() - t
+        counts[f"batched_{backend}"] = _launches()
+        check(poses.shape == (BATCH_LANES, BATCH_SCANS, 6)
+              and bool(np.all(np.isfinite(poses))),
+              f"batched {backend}: poses not finite (B, N, 6)")
+        check(bool(np.array_equal(poses[0], poses[1])),
+              f"batched {backend}: lanes 0 and 1 differ")
+        ates = [trajectory.ate_rmse(
+            poses[b], trajectory.relative_to_first(gt[s:s + BATCH_SCANS]),
+            align=False) for b, s in enumerate(starts)]
+        log("batched", f"gn_backend={backend}: B {BATCH_LANES} x "
+            f"{BATCH_SCANS} scans in {wall:.3f} s (first call included), "
+            f"lanes 0/1 bit-equal, ATE per lane (m) "
+            f"{[round(a, 4) for a in ates]}, K1 launches "
+            f"{counts[f'batched_{backend}'][0]}, K2 "
+            f"{counts[f'batched_{backend}'][1]}, K3 "
+            f"{counts[f'batched_{backend}'][2]}")
+        check(max(ates) < ATE_MAX, f"batched {backend}: ATE {max(ates)}")
+        results[backend] = dict(poses=poses.tolist(), ate=ates)
+    k1, k2, k3 = counts["batched_pallas"]
+    check(k1 > 0 and k2 > 0 and k3 > 0
+          and counts["batched_xla"][0] > 0 and counts["batched_xla"][1] == 0
+          and counts["batched_xla"][2] > 0,
+          f"batched: launches {counts}")
+
+    # lane 0 with a keyframe merge on every scan against the port's own
+    # single-sequence uniform step, and odom_step on the same scans
+    c1 = _batched_cfg(cfg, "pallas", kf_every=1)
+    p1 = batched.replay_batched(seqs[:2], c1, device=dev)
+    state = odometry.init_state(c1, dev)
+    uni = []
+    for s in seqs[0]:
+        state, out = odometry.odom_step_uniform(state, s, c1)
+        uni.append(out.pose)
+    uni = torch.stack(uni).cpu().numpy()
+    gap = float(np.linalg.norm(p1[0][:, 3:] - uni[:, 3:], axis=1).max())
+    gt0 = trajectory.relative_to_first(gt[:BATCH_SCANS])
+    cp = _batched_cfg(cfg, "pallas")
+    res = driver.replay_odometry(seqs[0], cp, warmup=BATCH_RATE_WARMUP,
+                                 device=dev)
+    ate_step = trajectory.ate_rmse(res.poses, gt0, align=False)
+    ate_uni = trajectory.ate_rmse(uni, gt0, align=False)
+    log("batched", f"kf every scan: lane 0 vs odom_step_uniform max "
+        f"position gap {gap:.6f} m (bar {BATCH_SINGLE_ATOL}); ATE on lane "
+        f"0's {BATCH_SCANS} scans: uniform step {ate_uni:.4f} m, batched (kf every "
+        f"{cfg.runtime.batched_kf_every}) {results['pallas']['ate'][0]:.4f} "
+        f"m, odom_step {ate_step:.4f} m")
+    check(gap < BATCH_SINGLE_ATOL, f"batched: lane 0 off the uniform step "
+          f"by {gap} m")
+    last = BATCH_LANES - 1
+    alone = batched.replay_batched([seqs[last]], cp, device=dev)[0]
+    gap_last = float(np.abs(alone - np.asarray(
+        results["pallas"]["poses"][last])).max())
+    log("batched", f"lane {last} replayed alone (B 1) vs in the B "
+        f"{BATCH_LANES} batch (pallas): max |pose difference| {gap_last}")
+
+    n_sync = _check_no_syncs(scans, cp)
+    log("batched", f"0 host syncs in {n_sync} warm batched_odom_step calls "
+        f"(B {BATCH_LANES}, a merge step and a merge-free step) under "
+        f"torch.cuda.set_sync_debug_mode('error')")
+
+    per_b = {}
+    for lanes in (1, BATCH_LANES):
+        names, launches, busy, wall, ops = _step_kernels(scans, cp, lanes)
+        per_b[lanes] = (names, launches)
+        log("batched", f"B {lanes}: one merge step launches K1 "
+            f"{launches[0]}, K2 {launches[1]}, K3 {launches[2]}, CUDA "
+            f"activities {sum(names.values())} ({len(names)} kinds), aten "
+            f"ops {ops}; device busy {busy:.3f} ms of {wall:.3f} ms wall "
+            f"({busy / wall:.3f} busy share, profiler on)")
+    (n1, l1), (n8, l8) = per_b[1], per_b[BATCH_LANES]
+    diff = {k: (n1.get(k, 0), n8.get(k, 0)) for k in set(n1) | set(n8)
+            if n1.get(k, 0) != n8.get(k, 0)}
+    check(l1 == l8, f"batched: kernel launches per step differ, B 1 {l1} vs "
+          f"B {BATCH_LANES} {l8}")
+    check(sum(n1.values()) == sum(n8.values()),
+          f"batched: CUDA activities per step differ: {diff}")
+    log("batched", f"launches per step equal at B 1 and B {BATCH_LANES}: "
+        f"K1/K2/K3 {l1}, CUDA activities {sum(n1.values())}"
+        + (f" (kinds differ: {diff})" if diff else ""))
+
+    rates = {}
+    for lanes in BATCH_RATE_LANES:
+        rates[lanes] = _rate(scans, cp, lanes)
+        log("batched", f"B {lanes}: {rates[lanes][0]:.3f} aggregate scans/s "
+            f"({BATCH_RATE_STEPS} steps on the kf-every-"
+            f"{cp.runtime.batched_kf_every} cadence), peak device memory "
+            f"{rates[lanes][1]} bytes")
+    res_rate = driver.replay_odometry(scans[:BATCH_SCANS], cp,
+                                      warmup=BATCH_RATE_WARMUP, device=dev)
+    log("batched", f"replay_odometry (odom_step, pallas) in the same call: "
+        f"{res_rate.scans_per_sec:.3f} scans/s; B {BATCH_LANES} / "
+        f"replay_odometry = "
+        f"{rates[BATCH_LANES][0] / res_rate.scans_per_sec:.3f}")
+
+    calls, states, scan_b = _record_k3(scans, cp)
+    k3_err = _check_k3(calls, cfg)
+    _check_batched_kernels(states, scan_b, cp)
+    with open(os.path.join(out_dir, "batched.json"), "w") as f:
+        json.dump(dict(results=results, single_gap_m=gap,
+                       ate_uniform=ate_uni, ate_odom_step=ate_step,
+                       rates={str(b): r for b, r in rates.items()},
+                       replay_odometry_scans_per_sec=res_rate.scans_per_sec,
+                       kernels_per_step={str(b): dict(names=v[0],
+                                                      launches=v[1])
+                                         for b, v in per_b.items()}), f)
+    return counts, k3_err
+
+
 def _load_baseline(root: str):
     """(knn_cuda, gn_cuda) of the lis_slam_torch package under `root`,
     imported under another name so both checkouts live in one process;
@@ -1620,6 +2096,9 @@ def main() -> int:
         launches.update(phase_lio(dev, args.out))
         phase = "greedy"
         launches.update(phase_greedy(scans, gt, cfg, dev, vec_poses))
+        phase = "batched"
+        batched_launches, k3 = phase_batched(scans, gt, cfg, dev, args.out)
+        launches.update(batched_launches)
         del scans
         phase = "slam"
         slam_launches, (k1_slam, k2_slam), plaza = phase_slam(dev, args.out)
@@ -1640,19 +2119,22 @@ def main() -> int:
             print(f"FAIL [{phase}]: {e!r}", file=sys.stderr)
         return 1
     kernels = []
-    for j, (key, name, source, replaces, err) in enumerate((
-            ("K1", "K1 exact kNN", K1_SOURCE, K1_REPLACES, k1),
-            ("K2", "K2 fused GN accumulation", K2_SOURCE, K2_REPLACES, k2))):
-        per_path = {p: c[j] for p, c in launches.items()}
-        # the headline numbers: the main path's largest case
-        top = max((c for c in CASES[key] if c["path"] == "main"),
+    for j, (key, name, source, replaces, err, path) in enumerate((
+            ("K1", "K1 exact kNN", K1_SOURCE, K1_REPLACES, k1, "main"),
+            ("K2", "K2 fused GN accumulation", K2_SOURCE, K2_REPLACES, k2,
+             "main"),
+            ("K3", "K3 GN solve and masked update", K3_SOURCE, K3_REPLACES,
+             k3, "batched"))):
+        per_path = {p: c[j] for p, c in launches.items() if len(c) > j}
+        # the headline numbers: the largest case of the kernel's main path
+        top = max((c for c in CASES[key] if c["path"] == path),
                   key=lambda c: c["bound_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(per_path.values()), launches_per_path=per_path,
             max_abs_err=err, ms=top["device_ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-            library_ms=None, shape=top["shape"],
+            library_ms=top["library_ms"], shape=top["shape"],
             device_ms=top["device_ms"], call_ms=top["call_ms"],
             bound_basis=top["bound_basis"],
             library_none_reason=top["library_none_reason"],

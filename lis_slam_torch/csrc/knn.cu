@@ -55,6 +55,11 @@
 //    (ops/knn.py:sq_dist), and both pick the same neighbors.
 // `tiles_done` (optional, null on the main path) receives each warp's
 // count of tiles it scanned, so a caller can see the share skipped.
+// Lanes (the scheduled solver's batched replay): B query clouds against B
+// maps of equal sizes, lane-strided in memory, in the same two launches;
+// the grid's y index is the lane, and each lane's blocks touch only its
+// own map, tiles and outputs, so a lane's result is bit-equal to a
+// one-lane launch.
 // Constants, each timed against a copy of this file with another value
 // (chip_smoke.py --baseline, H100 at 700 W): 128 points per tile and 16
 // warps per group. 64-point tiles were equal on the front end's surf
@@ -160,6 +165,15 @@ knn_prepass_kernel(const float* __restrict__ ref,
                    float4* __restrict__ box_hi) {
   __shared__ float xyz[3 * kTile];
   __shared__ float red[6][kPrepThreads / 32];
+  {  // this block's lane: its map, its packed tiles and boxes
+    const size_t lane = blockIdx.y;
+    const size_t n_tiles = gridDim.x;
+    ref += lane * n * 3;
+    ref_mask += lane * n;
+    packed += lane * n_tiles * kTile;
+    box_lo += lane * 2 * n_tiles;
+    box_hi += lane * 2 * n_tiles;
+  }
   const int base = blockIdx.x * kTile;
   const int cnt = min(kTile, n - base);
   for (int j = threadIdx.x; j < 3 * cnt; j += kPrepThreads)
@@ -226,9 +240,23 @@ knn_tiles_kernel(const float* __restrict__ query, int q_n,
                  const float4* __restrict__ packed,
                  const float4* __restrict__ box_lo,
                  const float4* __restrict__ box_hi, int n_tiles, float bound,
-                 const float* __restrict__ ref, float* __restrict__ out_d,
+                 const float* __restrict__ ref, int n_ref,
+                 float* __restrict__ out_d,
                  int* __restrict__ out_i, float* __restrict__ out_xyz,
                  int* __restrict__ tiles_done) {
+  {  // this block's lane: its queries, map, tiles, boxes and outputs
+    const size_t lane = blockIdx.y;
+    const size_t nt = n_tiles;
+    query += lane * q_n * 3;
+    packed += lane * nt * kTile;
+    box_lo += lane * 2 * nt;
+    box_hi += lane * 2 * nt;
+    ref += lane * n_ref * 3;
+    out_d += lane * q_n * K;
+    out_i += lane * q_n * K;
+    out_xyz += lane * q_n * K * 3;
+    if (tiles_done != nullptr) tiles_done += lane * gridDim.x * kWarps;
+  }
   // kWarps staging chunks; reused for the block merge after the scan
   constexpr int kStage = kWarps * kChunk * 4;
   constexpr int kMerge = kWarps * K * 32 * 2;
@@ -327,43 +355,45 @@ knn_tiles_kernel(const float* __restrict__ query, int q_n,
 
 template <int K>
 cudaError_t launch(const float* query, int q_n, const float* ref,
-                   const uint8_t* ref_mask, int n, float bound,
+                   const uint8_t* ref_mask, int n, int lanes, float bound,
                    float4* packed, float4* boxes, float* out_d, int* out_i,
                    float* out_xyz, int* tiles_done, cudaStream_t stream) {
   const int n_tiles = (n + kTile - 1) / kTile;
   float4* box_lo = boxes;
   float4* box_hi = boxes + n_tiles;
   if (n_tiles > 0) {
-    knn_prepass_kernel<<<n_tiles, kPrepThreads, 0, stream>>>(
+    knn_prepass_kernel<<<dim3(n_tiles, lanes), kPrepThreads, 0, stream>>>(
         ref, ref_mask, n, packed, box_lo, box_hi);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  knn_tiles_kernel<K><<<(q_n + 31) / 32, kThreads, 0, stream>>>(
-      query, q_n, packed, box_lo, box_hi, n_tiles, bound, ref, out_d, out_i,
-      out_xyz, tiles_done);
+  knn_tiles_kernel<K><<<dim3((q_n + 31) / 32, lanes), kThreads, 0, stream>>>(
+      query, q_n, packed, box_lo, box_hi, n_tiles, bound, ref, n, out_d,
+      out_i, out_xyz, tiles_done);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// query (q_n, 3) f32, ref (n, 3) f32, ref_mask (n,) bool as bytes;
-// scratch packed (n_tiles * tile, float4) and boxes (2 * n_tiles,
-// float4); outputs out_d/out_i (q_n, k), out_xyz (q_n, k, 3); tiles_done
-// (ceil(q_n / 32) * warps, int) or null. Returns a cudaError_t (0 on
-// success).
+// For each of `lanes` lanes: query (q_n, 3) f32, ref (n, 3) f32, ref_mask
+// (n,) bool as bytes; scratch packed (n_tiles * tile, float4) and boxes
+// (2 * n_tiles, float4); outputs out_d/out_i (q_n, k), out_xyz (q_n, k,
+// 3); tiles_done (ceil(q_n / 32) * warps, int) or null; each array holds
+// the lanes one after another. Returns a cudaError_t (0 on success).
 extern "C" int lis_knn(const float* query, int q_n, const float* ref,
-                       const uint8_t* ref_mask, int n, int k, float bound,
-                       void* packed, void* boxes, float* out_d, int* out_i,
-                       float* out_xyz, int* tiles_done, void* stream) {
-  if (q_n <= 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+                       const uint8_t* ref_mask, int n, int lanes, int k,
+                       float bound, void* packed, void* boxes, float* out_d,
+                       int* out_i, float* out_xyz, int* tiles_done,
+                       void* stream) {
+  if (q_n <= 0 || n < 0 || lanes < 1 || lanes > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float4* pk = static_cast<float4*>(packed);
   float4* bx = static_cast<float4*>(boxes);
 #define LIS_KNN_CASE(KV)                                                   \
   case KV:                                                                 \
     return static_cast<int>(launch<KV>(query, q_n, ref, ref_mask, n,       \
-                                       bound, pk, bx, out_d, out_i,        \
+                                       lanes, bound, pk, bx, out_d, out_i, \
                                        out_xyz, tiles_done, st));
   switch (k) {
     LIS_KNN_CASE(1)

@@ -17,6 +17,7 @@ import torch
 
 from ..config import FeatureConfig
 from .projection import ExtractedCloud
+from .voxel import lane_cumsum, scatter_front
 
 _BIG = 1e18
 
@@ -143,39 +144,39 @@ def _select_row_features_vectorized(curv, picked, count, cfg: FeatureConfig):
 
 
 def _scatter_front(ok: torch.Tensor, values, capacity: int, fills):
-    """Pack the rows of each (M, ...) tensor in `values` where `ok` (M,) is
-    set to the front of a (capacity, ...) buffer, keeping order; empty
-    slots take the matching fill. Returns (buffers..., mask)."""
-    pos = torch.cumsum(ok.to(torch.int32), 0) - 1
+    """Per lane of `ok` (B, M), pack the rows of each (B, M, ...) tensor in
+    `values` where `ok` is set to the front of a (B, capacity, ...) buffer,
+    keeping order; empty slots take the matching fill. Returns
+    (buffers..., mask (B, capacity))."""
+    pos = lane_cumsum(ok.to(torch.int32)) - 1
     dest = torch.where(ok & (pos < capacity), pos,
                        torch.full_like(pos, capacity)).to(torch.int64)
-    outs = []
-    for v, fill in zip(values, fills):
-        buf = torch.full((capacity + 1,) + v.shape[1:], fill, dtype=v.dtype,
-                         device=v.device)
-        buf[dest] = v
-        outs.append(buf[:capacity])
-    cnt = torch.clamp(torch.sum(ok.to(torch.int32)), max=capacity)
-    return outs + [torch.arange(capacity, device=ok.device) < cnt]
+    outs = [scatter_front(dest, v, capacity, fill)
+            for v, fill in zip(values, fills)]
+    cnt = torch.clamp(torch.sum(ok.to(torch.int32), -1), max=capacity)
+    return outs + [torch.arange(capacity, device=ok.device) < cnt[:, None]]
 
 
 def _gather_indexed(xyz, inten, idx, ok, capacity):
-    """Compact (row, slot)-indexed selections into a fixed buffer.
-    xyz (N,H,3); idx (N,S,K) slot indices; ok (N,S,K) validity."""
-    h = xyz.shape[1]
-    rows = torch.arange(idx.shape[0], device=idx.device)[:, None, None]
-    flat = (rows * h + torch.clamp(idx, 0, h - 1)).reshape(-1)
-    return _scatter_front(ok.reshape(-1),
-                          (xyz.reshape(-1, 3)[flat], inten.reshape(-1)[flat]),
-                          capacity, (0.0, 0.0))
+    """Compact (row, slot)-indexed selections into a fixed buffer per lane.
+    xyz (B,N,H,3); idx (B,N,S,K) slot indices; ok (B,N,S,K) validity."""
+    b, n, h = inten.shape
+    rows = torch.arange(n, device=idx.device)[:, None, None]
+    flat = (rows * h + torch.clamp(idx, 0, h - 1)).reshape(b, -1)
+    return _scatter_front(
+        ok.reshape(b, -1),
+        (torch.take_along_dim(xyz.reshape(b, -1, 3), flat[..., None], 1),
+         torch.take_along_dim(inten.reshape(b, -1), flat, 1)),
+        capacity, (0.0, 0.0))
 
 
 def _gather_flagged(xyz, inten, flag, src, capacity):
-    """Compact flagged (N,H) points into a fixed-capacity buffer, with the
-    per-slot source index (-1 in padding slots)."""
+    """Compact flagged (B,N,H) points into a fixed-capacity buffer per
+    lane, with the per-slot source index (-1 in padding slots)."""
+    b = flag.shape[0]
     buf, ibuf, sbuf, mask = _scatter_front(
-        flag.reshape(-1),
-        (xyz.reshape(-1, 3), inten.reshape(-1), src.reshape(-1)),
+        flag.reshape(b, -1),
+        (xyz.reshape(b, -1, 3), inten.reshape(b, -1), src.reshape(b, -1)),
         capacity, (0.0, 0.0, -1))
     return buf, ibuf, mask, torch.where(mask, sbuf, torch.full_like(sbuf, -1))
 
@@ -262,11 +263,19 @@ def extract_features(ext: ExtractedCloud, cfg: FeatureConfig,
                      greedy: bool = False) -> FeatureClouds:
     """Feature extraction over all rings: the vectorized local-extremum
     selection (the production default), or with `greedy` the reference's
-    pick-and-suppress replica."""
-    curv, picked, _valid = curvature_and_occlusion(ext, cfg)
+    pick-and-suppress replica. `ext` may carry a leading lane dim ((B, N,
+    H) fields): the lanes' rings are selected together as one (B*N, H)
+    set of rows, and each lane is compacted into its own buffers."""
+    one = ext.mask.dim() == 2
+    if one:
+        ext = ExtractedCloud(*(t[None] for t in ext))
+    b, n, h = ext.mask.shape
+    rows = ExtractedCloud(*(t.reshape((b * n,) + t.shape[2:]) for t in ext))
+    curv, picked, _valid = curvature_and_occlusion(rows, cfg)
     if greedy:
-        corner_f, sharp_f, surf_f, ssurf_f = _select_rows_greedy(
-            curv, picked, ext.col, ext.count, cfg)
+        flags = _select_rows_greedy(curv, picked, rows.col, rows.count, cfg)
+        corner_f, sharp_f, surf_f, ssurf_f = (f.reshape(b, n, h)
+                                              for f in flags)
         corner_xyz, corner_int, corner_mask, _ = _gather_flagged(
             ext.xyz, ext.intensity, corner_f, ext.src, cfg.max_corner_points)
         sharp_xyz, _si, sharp_mask, _ = _gather_flagged(
@@ -277,7 +286,11 @@ def extract_features(ext: ExtractedCloud, cfg: FeatureConfig,
             cfg.max_sharp_surf_points)
     else:
         corner_sel, sharp_sel, surf_f, ssurf_sel = (
-            _select_row_features_vectorized(curv, picked, ext.count, cfg))
+            _select_row_features_vectorized(curv, picked, rows.count, cfg))
+        corner_sel, sharp_sel, ssurf_sel = (
+            tuple(t.reshape((b, n) + t.shape[1:]) for t in sel)
+            for sel in (corner_sel, sharp_sel, ssurf_sel))
+        surf_f = surf_f.reshape(b, n, h)
         corner_xyz, corner_int, corner_mask = _gather_indexed(
             ext.xyz, ext.intensity, *corner_sel, cfg.max_corner_points)
         sharp_xyz, _si, sharp_mask = _gather_indexed(
@@ -286,7 +299,7 @@ def extract_features(ext: ExtractedCloud, cfg: FeatureConfig,
             ext.xyz, ext.intensity, *ssurf_sel, cfg.max_sharp_surf_points)
     surf_xyz, surf_int, surf_mask, surf_src = _gather_flagged(
         ext.xyz, ext.intensity, surf_f, ext.src, cfg.max_surf_points)
-    return FeatureClouds(
+    fc = FeatureClouds(
         corner_xyz=corner_xyz,
         corner_mask=corner_mask,
         sharp_corner_xyz=sharp_xyz,
@@ -299,3 +312,4 @@ def extract_features(ext: ExtractedCloud, cfg: FeatureConfig,
         surf_intensity=surf_int,
         surf_src=surf_src,
     )
+    return FeatureClouds(*(t[0] for t in fc)) if one else fc

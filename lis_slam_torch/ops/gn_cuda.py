@@ -3,17 +3,29 @@
 Port of lis_slam_tpu/ops/pallas_gn.py (`gn_partials`, the Pallas TPU
 kernel `_gn_kernel`, `pack_scalars`, `gn_iteration_hg`). The kernel is CUDA
 C++ in csrc/gn.cu — see its header for what bounds it on the H100 and how
-its design answers: one launch per GN iteration for both clouds, the
-scalar rows by value from the host, the block sums reduced by the last
-block. The wrappers take the plain PyTorch version for tensors on the CPU
-and launch the kernel for CUDA tensors; they never fall back.
+its design answers: one launch per GN iteration for both clouds (and
+every lane), the scalar rows by value from the host or from device
+memory, each lane's block sums reduced by its last block. The wrappers
+take the plain PyTorch version for tensors on the CPU and launch the
+kernel for CUDA tensors; they never fall back.
 
 `gn_iteration_vec` is the main path's call (scan_match, once per GN
 iteration): it returns the packed (43,) normal equations [H (6x6
 row-major), g (6), n_valid], so the solver brings them to the host in one
 copy. `gn_iteration_hg` unpacks them as the JAX function returns them;
-`gn_partials` runs one cloud. Every K2 launch counts in
-`gn_iteration_vec.launches`.
+`gn_partials` runs one cloud. `gn_iteration_lanes` is the scheduled
+solver's call: B lanes in one launch, each lane's scalar rows read from
+device memory (where kernel K3 wrote them), (B, 43) out; each lane's
+result is bit-equal to a one-lane launch on its inputs. It computes each
+row and the sums in float64 and rounds H, g once: on the circuit,
+float32 rounding of the rows whose five neighbours are nearly collinear
+moves the weakest eigenvalue of H by 5-9%, and where that eigenvalue
+sits at the degeneracy threshold the solver's projection, and with it
+the lane's drift, followed the rounding (PERF.md, section 6). The one-lane
+calls keep float32, as the JAX kernel computes, and so does the lanes
+call on the CPU, where the tests hold the port to the JAX package;
+`gn_iteration_lanes_plain` is its plain version in either precision.
+Every K2 launch counts in `gn_iteration_vec.launches`.
 
 The plain version is the op-by-op ("xla" backend) math of
 scan_match._iteration_update for ONE cloud — transform, stable re-rank,
@@ -89,22 +101,30 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("gn", _FLAGS)
     p, i32 = ctypes.c_void_p, ctypes.c_int
     cloud = [p, p, p, p, p, i32]
-    lib.lis_gn_iteration.argtypes = cloud + cloud + [i32, p, p, p, p, p]
+    lib.lis_gn_iteration.argtypes = cloud + cloud + [i32, p, p, i32, i32, p,
+                                                      p, p, p]
     lib.lis_gn_iteration.restype = i32
     lib.lis_gn_block_size.argtypes = []
     lib.lis_gn_block_size.restype = i32
     return lib
 
 
-@functools.cache
-def _ticket(device: torch.device) -> torch.Tensor:
-    """The zeroed counter that the last block of each launch on `device`
-    claims and resets (launches on one stream run one after another)."""
-    return torch.zeros(1, dtype=torch.int32, device=device)
+_TICKETS: dict = {}
 
 
-def _check_cloud(pts, mask, cand, cand_ok, weight, k, what):
-    q_n = pts.shape[0]
+def _tickets(device: torch.device, lanes: int) -> torch.Tensor:
+    """Zeroed counters, one per lane, that the last block of each lane of
+    a launch on `device` claims and resets (launches on one stream run one
+    after another). Grown, once, for more lanes."""
+    t = _TICKETS.get(device)
+    if t is None or t.shape[0] < lanes:
+        t = _TICKETS[device] = torch.zeros(max(lanes, 8), dtype=torch.int32,
+                                           device=device)
+    return t
+
+
+def _check_cloud(pts, mask, cand, cand_ok, weight, k, what, lead=()):
+    q_n = pts.shape[len(lead)] if pts.dim() > len(lead) else -1
     tensors = [t for t in (pts, mask, cand, cand_ok, weight) if t is not None]
     if any(t.device != pts.device for t in tensors):
         raise ValueError(f"{what}: inputs must share a device")
@@ -113,11 +133,13 @@ def _check_cloud(pts, mask, cand, cand_ok, weight, k, what):
         raise TypeError(f"{what}: pts, cand, weight, scalars must be f32")
     if mask.dtype != torch.bool or cand_ok.dtype != torch.bool:
         raise TypeError(f"{what}: mask and cand_ok must be bool")
-    if (pts.shape != (q_n, 3) or mask.shape != (q_n,)
-            or cand.shape != (q_n, k, 3) or cand_ok.shape != (q_n, k)
-            or (weight is not None and weight.shape != (q_n,))):
+    if (pts.shape != lead + (q_n, 3) or mask.shape != lead + (q_n,)
+            or cand.shape != lead + (q_n, k, 3)
+            or cand_ok.shape != lead + (q_n, k)
+            or (weight is not None and weight.shape != lead + (q_n,))):
         raise ValueError(f"{what}: expected pts (Q,3), mask (Q,), cand "
-                         "(Q,k,3), cand_ok (Q,k), weight (Q,), scalars (64,)")
+                         "(Q,k,3), cand_ok (Q,k), weight (Q,), scalars (64,)"
+                         + (" with a leading lane dim" if lead else ""))
 
 
 def _check_inputs(pts, mask, cand, cand_ok, weight, scalars, mode, k):
@@ -133,16 +155,19 @@ def _check_inputs(pts, mask, cand, cand_ok, weight, scalars, mode, k):
         raise ValueError(f"gn_partials: unknown mode {mode!r}")
 
 
-def _launch(corner, surf, rows: torch.Tensor, k: int):
+def _launch(corner, surf, rows: torch.Tensor, k: int, lanes: int = 0):
     """One K2 launch over the clouds `corner` and `surf`, each None or
-    (pts, mask, cand, cand_ok, weight or None) on one CUDA device, with
-    `rows` the (2, 64) float32 scalar rows on the host. Returns the packed
-    (43,) result."""
+    (pts, mask, cand, cand_ok, weight or None) on one CUDA device. One
+    lane (lanes=0): clouds (Q, ...), `rows` the (2, 64) float32 scalar
+    rows on the host, passed by value; returns the packed (43,) result.
+    B lanes: clouds (B, Q, ...), `rows` (B, 2, 64) on the device, rows
+    and sums in float64; returns (B, 43)."""
     if k not in KERNEL_K:
         raise ValueError(f"gn_partials: kernel is built for k in {KERNEL_K}, "
                          f"got {k}")
     lib = _lib()
     dev = (corner if corner is not None else surf)[0].device
+    q_axis = 1 if lanes else 0
     args, n_blocks = [], 0
     for c in (corner, surf):
         if c is None:
@@ -151,15 +176,28 @@ def _launch(corner, surf, rows: torch.Tensor, k: int):
         if not all(t.is_contiguous() for t in c if t is not None):
             raise ValueError("gn_partials: inputs must be contiguous")
         args += [None if t is None else t.data_ptr() for t in c]
-        args.append(c[0].shape[0])
-        n_blocks += -(-c[0].shape[0] // lib.lis_gn_block_size())
-    rows = rows.to(torch.float32).contiguous()
-    partials = torch.empty((max(n_blocks, 1), 28), dtype=torch.float32,
+        args.append(c[0].shape[q_axis])
+        n_blocks += -(-c[0].shape[q_axis] // lib.lis_gn_block_size())
+    if lanes:
+        if (rows.dtype != torch.float32 or rows.shape != (lanes, 2, 64)
+                or rows.device != dev or not rows.is_contiguous()):
+            raise ValueError("gn_iteration_lanes: rows must be float32 "
+                             "(B, 2, 64), contiguous, on the clouds' device")
+        host, dev_rows = None, rows.data_ptr()
+    else:
+        rows = rows.to(torch.float32).contiguous()
+        host, dev_rows = rows.data_ptr(), None
+    n_lanes = max(lanes, 1)
+    partials = torch.empty((n_lanes * max(n_blocks, 1), 28),
+                           dtype=torch.float64 if lanes else torch.float32,
                            device=dev)
-    out = torch.empty(43, dtype=torch.float32, device=dev)
+    out = torch.empty((n_lanes, 43) if lanes else (43,), dtype=torch.float32,
+                      device=dev)
     err = lib.lis_gn_iteration(
-        *args, k, rows.data_ptr(), partials.data_ptr(),
-        _ticket(dev).data_ptr(), out.data_ptr(), cuda_build.stream_ptr(dev))
+        *args, k, host, dev_rows, n_lanes, int(bool(lanes)),
+        partials.data_ptr(),
+        _tickets(dev, n_lanes).data_ptr(), out.data_ptr(),
+        cuda_build.stream_ptr(dev))
     cuda_build.check(err, "gn kernel")
     gn_iteration_vec.launches += 1
     return out
@@ -232,6 +270,59 @@ def gn_iteration_vec(pose, corner_pts, corner_mask, c_cand, c_ok,
 
 
 gn_iteration_vec.launches = 0
+
+
+def gn_iteration_lanes(rows: torch.Tensor, corner_pts, corner_mask, c_cand,
+                       c_ok, surf_pts, surf_mask, s_cand, s_ok, corner_w,
+                       surf_w, k: int) -> torch.Tensor:
+    """The fused H/g build of one GN iteration for B lanes: clouds with a
+    leading lane dim ((B, Q, 3) points, (B, Q, k, 3) candidates, ...),
+    `rows` the lanes' (B, 2, 64) scalar rows (gn_solve writes them on the
+    device). Returns the packed (B, 43) float32 normal equations. CUDA: one
+    K2 launch for every lane, rows and sums in float64; CPU: the plain
+    version in float32 (gn_iteration_lanes_plain), as the JAX package."""
+    lead = rows.shape[:1]
+    for c in ((corner_pts, corner_mask, c_cand, c_ok, corner_w),
+              (surf_pts, surf_mask, s_cand, s_ok, surf_w)):
+        _check_cloud(*c, k, "gn_iteration_lanes", lead)
+        if c[0].device != rows.device:
+            raise ValueError("gn_iteration_lanes: inputs must share a device")
+    dev = rows.device
+    if dev.type == "cuda":
+        return _launch((corner_pts, corner_mask, c_cand, c_ok, corner_w),
+                       (surf_pts, surf_mask, s_cand, s_ok, surf_w),
+                       rows, k, lanes=lead[0])
+    if dev.type != "cpu":
+        raise ValueError(f"gn_iteration_lanes: unsupported device {dev}")
+    return gn_iteration_lanes_plain(rows, corner_pts, corner_mask, c_cand,
+                                    c_ok, surf_pts, surf_mask, s_cand, s_ok,
+                                    corner_w, surf_w, k, torch.float32)
+
+
+def gn_iteration_lanes_plain(rows, corner_pts, corner_mask, c_cand, c_ok,
+                             surf_pts, surf_mask, s_cand, s_ok, corner_w,
+                             surf_w, k: int,
+                             dtype: torch.dtype = torch.float64
+                             ) -> torch.Tensor:
+    """The plain version of gn_iteration_lanes: per lane, gn_partials_plain
+    of each cloud on its inputs cast to `dtype` (float64: the kernel's
+    precision), summed, rounded to float32 (B, 43), on the clouds'
+    device."""
+    out = []
+    for b in range(rows.shape[0]):
+        sums = []
+        for i, (mode, pts, mask, cand, ok, w) in enumerate((
+                ("corner", corner_pts, corner_mask, c_cand, c_ok, corner_w),
+                ("surf", surf_pts, surf_mask, s_cand, s_ok, surf_w))):
+            wb = (torch.ones(pts.shape[1], dtype=dtype, device=pts.device)
+                  if w is None else w[b].to(dtype))
+            sums.append(gn_partials_plain(
+                pts[b].to(dtype), mask[b], cand[b].to(dtype), ok[b], wb,
+                rows[b, i].to(dtype), mode, k))
+        (Hc, gc, nc), (Hs, gs, ns) = sums
+        out.append(torch.cat([(Hc + Hs).reshape(-1), gc + gs,
+                              (nc + ns).reshape(1).to(dtype)]))
+    return torch.stack(out).to(torch.float32)
 
 
 def gn_iteration_hg(pose, corner_pts, corner_mask, c_cand, c_ok,

@@ -74,14 +74,17 @@ def compute_ring(points: torch.Tensor, valid: torch.Tensor, n_scan: int):
 def compute_rel_time(points: torch.Tensor, valid: torch.Tensor,
                      scan_period: float) -> torch.Tensor:
     """Relative time in [0, scan_period] from the azimuth sweep fraction
-    (startOri/endOri unwrap, laserPretreatment.cpp:17-20, 62-76)."""
+    (startOri/endOri unwrap, laserPretreatment.cpp:17-20, 62-76), per scan
+    of (..., P) points."""
     ori = -torch.atan2(points[..., 1], points[..., 0])
-    n = ori.shape[0]
+    n = ori.shape[-1]
     idx = torch.arange(n, device=ori.device)
-    first = torch.argmin(torch.where(valid, idx, torch.full_like(idx, n + 1)))
-    last = torch.argmax(torch.where(valid, idx, torch.full_like(idx, -1)))
-    start_ori = ori[first]
-    end_ori = ori[last] + 2.0 * math.pi
+    first = torch.argmin(torch.where(valid, idx, torch.full_like(idx, n + 1)),
+                         dim=-1, keepdim=True)
+    last = torch.argmax(torch.where(valid, idx, torch.full_like(idx, -1)),
+                        dim=-1, keepdim=True)
+    start_ori = torch.take_along_dim(ori, first, dim=-1)
+    end_ori = torch.take_along_dim(ori, last, dim=-1) + 2.0 * math.pi
     span = end_ori - start_ori
     # reference clamps span into (pi, 3*pi)
     span = torch.where(span > 3.0 * math.pi, span - 2.0 * math.pi, span)
@@ -95,7 +98,8 @@ def compute_rel_time(points: torch.Tensor, valid: torch.Tensor,
 def pretreat(points: torch.Tensor, valid: torch.Tensor,
              cfg: SensorConfig) -> PretreatedCloud:
     """NaN/range gate + ring + relative time (LaserPretreatment::
-    Pretreatment + removeClosedPointCloud, laserPretreatment.h:25-54)."""
+    Pretreatment + removeClosedPointCloud, laserPretreatment.h:25-54).
+    Scans may carry a leading lane dim: (B, P, 4) points, (B, P) valid."""
     finite = torch.all(torch.isfinite(points), dim=-1)
     rng = norm3(points[..., :3])
     in_range = ((rng >= cfg.lidar_min_range) & (rng <= cfg.lidar_max_range)

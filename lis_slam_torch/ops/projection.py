@@ -16,6 +16,7 @@ import torch
 
 from ..config import SensorConfig
 from .pretreatment import norm3, sum_sq3
+from .voxel import lane_cumsum, lane_sort, scatter_front
 
 _INVALID_RANGE = 1e9
 _KEY_INVALID = 2**31 - 1
@@ -44,9 +45,10 @@ class ExtractedCloud(NamedTuple):
 
 
 def pixel_columns(points: torch.Tensor, h: int) -> torch.Tensor:
-    """(P,) int32 range-image column of each point (projectPointCloud's
+    """(..., P) int32 range-image column of each point (projectPointCloud's
     horizon angle); may fall outside [0, h) for degenerate points."""
-    horizon_angle = torch.atan2(points[:, 0], points[:, 1]) * (180.0 / math.pi)
+    horizon_angle = torch.atan2(points[..., 0], points[..., 1]) * (
+        180.0 / math.pi)
     col = (-torch.round((horizon_angle - 90.0) / (360.0 / h))).to(torch.int32)
     col = col + h // 2
     return torch.where(col >= h, col - h, col)
@@ -95,7 +97,27 @@ def project_and_extract(points: torch.Tensor, intensity: torch.Tensor,
     the first entry per pixel is the nearest-range winner, and winners come
     out in row-major pixel order. Returns (RangeImage or None,
     ExtractedCloud): the grid image of the winners (`want_image=True`,
-    what RangeNet reads; the front end skips it)."""
+    what RangeNet reads; the front end skips it).
+
+    Scans may carry a leading lane dim ((B, P, 3) points, (B, P) the
+    rest): each lane is projected on its own, in the same launches, and the
+    ExtractedCloud fields gain the lane dim (no image then)."""
+    one = points.dim() == 2
+    if one:
+        points, intensity, ring, rel_time, valid = (
+            t[None] for t in (points, intensity, ring, rel_time, valid))
+    elif want_image:
+        raise ValueError("project_and_extract: the image is for one scan")
+    ext, time = _project_lanes(points, intensity, ring, rel_time, valid, cfg)
+    if one:
+        ext, time = ExtractedCloud(*(t[0] for t in ext)), time[0]
+    return (range_image(ext, time) if want_image else None), ext
+
+
+def _project_lanes(points, intensity, ring, rel_time, valid,
+                   cfg: SensorConfig):
+    """project_and_extract over (B, P) lanes: (ExtractedCloud with a lane
+    dim, the compacted slots' relative time (B, N, H))."""
     n, h = cfg.n_scan, cfg.horizon_scan
     dev = points.device
     rng = norm3(points)
@@ -111,46 +133,52 @@ def project_and_extract(points: torch.Tensor, intensity: torch.Tensor,
                      0, 16382).to(torch.int32)
     key = torch.where(ok, pix * 16384 + rq,
                       torch.full_like(pix, _KEY_INVALID))
-    ks, order = torch.sort(key, stable=True)
+    ks, order = lane_sort(key.to(torch.int64))
+    ks = ks.to(torch.int32)
     # payload columns gathered in sorted order: rng, x, y, z, intensity,
     # time, src (raw index, exact in f32 for P < 2^24)
     src_f = order.to(torch.float32)
-    wp = torch.stack([rng[order], points[order, 0], points[order, 1],
-                      points[order, 2], intensity[order], rel_time[order],
-                      src_f], dim=1)
+    xyz = torch.take_along_dim(points, order[..., None], dim=-2)
+    wp = torch.stack([torch.take_along_dim(rng, order, -1), xyz[..., 0],
+                      xyz[..., 1], xyz[..., 2],
+                      torch.take_along_dim(intensity, order, -1),
+                      torch.take_along_dim(rel_time, order, -1), src_f],
+                     dim=-1)
     kpix = torch.div(ks, 16384, rounding_mode="floor")
-    first = torch.ones_like(ks, dtype=torch.bool)
-    first[1:] = kpix[1:] != kpix[:-1]
+    first = torch.cat([torch.ones_like(ks[:, :1], dtype=torch.bool),
+                       kpix[:, 1:] != kpix[:, :-1]], dim=-1)
     first &= ks != _KEY_INVALID
 
     # winners are in row-major pixel order: a winner's slot in its row is
     # its global winner rank minus the row's first winner rank
     win_row = torch.where(first, torch.div(kpix, h, rounding_mode="floor"),
-                          torch.full_like(kpix, n))
-    counts = torch.bincount(win_row.to(torch.int64),
-                            minlength=n + 1)[:n].to(torch.int32)
-    row_start = torch.cumsum(counts, 0) - counts
-    wrank = torch.cumsum(first.to(torch.int32), 0) - 1
-    slot = wrank - row_start[torch.clamp(win_row, 0, n - 1).to(torch.int64)]
+                          torch.full_like(kpix, n)).to(torch.int64)
+    # non-winners add 0: counts stays a dense (B, n) buffer (a slice of a
+    # spare-row buffer would make every lane-merging reshape of it copy
+    # for B > 1 alone)
+    row = torch.clamp(win_row, 0, n - 1)
+    counts = torch.zeros((ks.shape[0], n), dtype=torch.int32,
+                         device=dev).scatter_add_(1, row,
+                                                  first.to(torch.int32))
+    row_start = lane_cumsum(counts) - counts
+    wrank = lane_cumsum(first.to(torch.int32)) - 1
+    slot = wrank - torch.take_along_dim(row_start, row, -1)
     cdest = torch.where(first & (slot < h), win_row * h + slot,
                         torch.full_like(slot, n * h)).to(torch.int64)
     col_f = torch.remainder(kpix, h).to(torch.float32)
-    payload = torch.cat([wp, col_f[:, None]], dim=1)  # (P, 8)
-    comp = torch.zeros((n * h + 1, 8), dtype=torch.float32, device=dev)
-    comp[cdest] = payload
-    comp = comp[: n * h].reshape(n, h, 8)
-    mask = torch.arange(h, device=dev)[None, :] < counts[:, None]
+    payload = torch.cat([wp, col_f[..., None]], dim=-1)  # (B, P, 8)
+    comp = scatter_front(cdest, payload, n * h).reshape(-1, n, h, 8)
+    mask = torch.arange(h, device=dev) < counts[..., None]
     ext = ExtractedCloud(
         rng=torch.where(mask, comp[..., 0],
                         torch.full_like(comp[..., 0], _INVALID_RANGE)),
         xyz=comp[..., 1:4],
         intensity=comp[..., 4],
         col=torch.where(mask, comp[..., 7].to(torch.int32),
-                        torch.full_like(counts[:1], -1)),
+                        torch.full_like(mask, -1, dtype=torch.int32)),
         count=counts,
         mask=mask,
         src=torch.where(mask, comp[..., 6].to(torch.int32),
-                        torch.full_like(counts[:1], -1)),
+                        torch.full_like(mask, -1, dtype=torch.int32)),
     )
-    img = range_image(ext, comp[..., 5]) if want_image else None
-    return img, ext
+    return ext, comp[..., 5]

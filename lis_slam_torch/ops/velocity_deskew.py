@@ -31,8 +31,9 @@ def velocity_deskew(points: torch.Tensor, rel_time: torch.Tensor,
                     valid: torch.Tensor) -> torch.Tensor:
     """Constant-velocity compensation to the scan-start frame
     (AdjustCloud/UpdateMatrix): p' = R(w t) p + v t, times relative to the
-    scan start."""
-    R = se3.euler_to_rot(rel_time[:, None] * angular_rate[None, :])
-    out = (torch.einsum("nij,nj->ni", R, points)
-           + rel_time[:, None] * velocity[None, :])
-    return torch.where(valid[:, None], out, points)
+    scan start. A leading lane dim is allowed: (B, N, 3) points, (B, N)
+    times and valid, (B, 3) rates."""
+    R = se3.euler_to_rot(rel_time[..., None] * angular_rate[..., None, :])
+    out = (torch.einsum("...nij,...nj->...ni", R, points)
+           + rel_time[..., None] * velocity[..., None, :])
+    return torch.where(valid[..., None], out, points)

@@ -6,7 +6,8 @@ Field names are those of the JAX package's `OdomState`, `ImuState`,
 pipeline/semantic_odometry.py, pipeline/slam.py), so a state produced by
 either package can start the other: `{f: np.asarray(v) for f, v in
 jax_state._asdict().items()}` goes in, and the `*_to_numpy` functions give
-the same layout back. A LIO snapshot (`lio_to_numpy`) holds a whole
+the same layout back (`odom_states_*` for the lanes of batched replay). A
+LIO snapshot (`lio_to_numpy`) holds a whole
 `LioOdometry` run. The host state of the back end (`LoopDetector`,
 `SubMapCollector` with its keyframes, `GraphBuilder`) has snapshots too;
 the JAX objects carry the same attributes, so `loop_detector_to_numpy`
@@ -47,6 +48,23 @@ def odom_state_to_numpy(state: OdomState) -> dict:
     """Dict of numpy arrays keyed by field name."""
     return {f: getattr(state, f).detach().cpu().numpy()
             for f in OdomState._fields}
+
+
+def odom_states_from_numpy(lanes: list, device: torch.device | str = "cpu"
+                           ) -> OdomState:
+    """Lanes of an OdomState (parallel/batched.py) on `device` from one
+    dict of arrays per lane, e.g. one JAX state per sequence, or from a
+    batched JAX state's dict cut by lane."""
+    return odom_state_from_numpy(
+        {f: np.stack([np.asarray(a[f], dtype=_dtype(f)) for a in lanes])
+         for f in OdomState._fields}, device)
+
+
+def odom_states_to_numpy(state: OdomState) -> list:
+    """One dict of numpy arrays per lane of a lanes OdomState."""
+    arrays = odom_state_to_numpy(state)
+    return [{f: a[b] for f, a in arrays.items()}
+            for b in range(state.pose.shape[0])]
 
 
 def _host(a) -> torch.Tensor:

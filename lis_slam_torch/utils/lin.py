@@ -88,7 +88,47 @@ def solve6_spd(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1, x2])
 
 
+def solve6_spd_batched(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """solve6_spd over leading dims: H (..., 6, 6), g (..., 6). The same
+    Schur-complement formulas, as batched matrix products; the plain
+    version of the solve in the GN solve kernel K3 (ops/gn_solve.py)."""
+    A, B, C = H[..., :3, :3], H[..., :3, 3:], H[..., 3:, 3:]
+    g1, g2 = g[..., :3, None], g[..., 3:, None]
+    Ai = inv3(A)
+    BtAi = B.transpose(-1, -2) @ Ai
+    Si = inv3(C - BtAi @ B)
+    x2 = Si @ (g2 - BtAi @ g1)
+    x1 = Ai @ (g1 - B @ x2)
+    return torch.cat([x1, x2], dim=-2)[..., 0]
+
+
 _PAIRS6 = [(p, q) for p in range(6) for q in range(p + 1, 6)]
+
+
+def jacobi_eigh6_batched(H: torch.Tensor, sweeps: int = 6
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """jacobi_eigh6 over leading dims as float64 tensor ops: the same
+    rotations in the same order on every (6, 6) of H (..., 6, 6), rounded
+    to H's dtype. ~1,300 small ops, so a plain version for tests and
+    comparisons, not a hot path (kernel K3 runs it on the card)."""
+    A = H.detach().double().clone()
+    V = torch.eye(6, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    for _ in range(sweeps):
+        for p, q in _PAIRS6:
+            theta = 0.5 * torch.atan2(2.0 * A[..., p, q],
+                                      A[..., p, p] - A[..., q, q] + 1e-30)
+            c, s = torch.cos(theta)[..., None], torch.sin(theta)[..., None]
+            rp, rq = A[..., p, :].clone(), A[..., q, :].clone()
+            A[..., p, :] = c * rp + s * rq
+            A[..., q, :] = c * rq - s * rp
+            for M in (A, V):
+                a, b = M[..., :, p].clone(), M[..., :, q].clone()
+                M[..., :, p] = c * a + s * b
+                M[..., :, q] = c * b - s * a
+    evals = torch.diagonal(A, dim1=-2, dim2=-1).to(H.dtype)
+    order = torch.argsort(evals, dim=-1, stable=True)
+    vecs = torch.take_along_dim(V.to(H.dtype), order[..., None, :], dim=-1)
+    return torch.take_along_dim(evals, order, dim=-1), vecs
 
 
 def jacobi_eigh6(H: torch.Tensor, sweeps: int = 6

@@ -66,6 +66,31 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ij,...nj->...ni", R, pts) + T[..., None, :3, 3]
 
 
+def matmul_lanes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b over leading (lane) dims as broadcast products summed in k
+    order, so every entry rounds the same way whatever the number of
+    lanes: a batched cuBLAS product picks its algorithm, and with it the
+    rounding, by the batch count, and a lane's result would then depend on
+    how many lanes run beside it."""
+    out = a[..., :, :1] * b[..., :1, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k:k + 1] * b[..., k:k + 1, :]
+    return out
+
+
+def transform_points_lanes(T: torch.Tensor, pts: torch.Tensor
+                           ) -> torch.Tensor:
+    """transform_points with the rotation applied by matmul_lanes."""
+    return (matmul_lanes(pts, T[..., :3, :3].transpose(-1, -2))
+            + T[..., None, :3, 3])
+
+
+def transform_inverse_lanes(T: torch.Tensor) -> torch.Tensor:
+    """transform_inverse with its product by matmul_lanes."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return make_transform(Rt, -matmul_lanes(Rt, T[..., :3, 3:4])[..., 0])
+
+
 def apply_rotation(R: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Rotate (..., N, 3) points by (..., 3, 3)."""
     return torch.einsum("...ij,...nj->...ni", R, pts)

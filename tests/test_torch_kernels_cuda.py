@@ -6,9 +6,13 @@ file imports no JAX, so it runs where only the port is installed:
 
 (`--noconftest`: tests/conftest.py sets up JAX for the rest of the suite.)
 
-Kernels: K1 exact kNN (ops/knn_cuda.py, csrc/knn.cu) and K2 fused GN
-accumulation (ops/gn_cuda.py, csrc/gn.cu). chip_smoke.py runs the same
-comparisons at the front end's and the back end's full shapes.
+Kernels: K1 exact kNN (ops/knn_cuda.py, csrc/knn.cu), K2 fused GN
+accumulation (ops/gn_cuda.py, csrc/gn.cu), both also over lanes (the
+scheduled solver's batched replay: each lane bit-equal to a one-lane
+launch), and K3 the GN solve and masked update of the scheduled solver
+(ops/gn_solve.py, csrc/gn_solve.cu). chip_smoke.py runs the same
+comparisons at the front end's, the back end's and the batched replay's
+full shapes.
 """
 
 import numpy as np
@@ -343,3 +347,142 @@ def test_gn_kernel_weighted_at_refine_shape(dev):
     for a, b in ((H, Hp), (g, gp)):
         scale = float(b.abs().max()) + 1e-9
         torch.testing.assert_close(a / scale, b / scale, atol=2e-4, rtol=0)
+
+
+def _ragged_lanes(dev, sizes, n_refs, seed=7):
+    """Lanes of different sizes, padded to the largest: queries with
+    zeros, maps with masked-out points at the end."""
+    r = np.random.default_rng(seed)
+    q_max, n_max = max(sizes), max(n_refs)
+    q = np.zeros((len(sizes), q_max, 3), np.float32)
+    ref = np.zeros((len(sizes), n_max, 3), np.float32)
+    mask = np.zeros((len(sizes), n_max), bool)
+    for b, (qn, nn) in enumerate(zip(sizes, n_refs)):
+        q[b, :qn] = r.uniform(-10, 10, (qn, 3))
+        ref[b, :nn] = r.uniform(-10, 10, (nn, 3))
+        mask[b, :nn] = r.uniform(size=nn) > 0.2
+    return (torch.from_numpy(q).to(dev), torch.from_numpy(ref).to(dev),
+            torch.from_numpy(mask).to(dev))
+
+
+_LANE_SIZES = {1: ([700], [5000]), 3: ([700, 1024, 33], [5000, 16384, 129]),
+               8: ([700, 1024, 33, 1, 512, 999, 64, 1000],
+                   [5000, 16384, 129, 3000, 16384, 7, 128, 9999])}
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+@pytest.mark.parametrize("k,cap", [(8, 4.0), (1, None)])
+def test_knn_kernel_lanes_bit_equal(dev, lanes, k, cap):
+    """K1 over lanes of different sizes (padded): one launch, and each
+    lane's rows bit-equal to a one-lane launch on the unpadded lane and to
+    the plain version."""
+    sizes, n_refs = _LANE_SIZES[lanes]
+    q, ref, mask = _ragged_lanes(dev, sizes, n_refs)
+    before = knn_cuda.knn.launches
+    d, i, xyz = knn_cuda.knn_lanes(q, ref, mask, k=k, max_sq_dist=cap)
+    assert knn_cuda.knn.launches == before + 1
+    for b, (qn, nn) in enumerate(zip(sizes, n_refs)):
+        args = (q[b, :qn].contiguous(), ref[b, :nn].contiguous(),
+                mask[b, :nn].contiguous())
+        d1, i1, x1 = knn_cuda.knn(*args, k=k, max_sq_dist=cap)
+        dp, ip, _ = knn_cuda.knn_plain(*args, k=k, max_sq_dist=cap)
+        torch.cuda.synchronize()
+        assert torch.equal(d[b, :qn], d1) and torch.equal(i[b, :qn], i1)
+        assert torch.equal(xyz[b, :qn], x1)
+        assert torch.equal(d1, dp) and torch.equal(i1, ip)
+    done, total = knn_cuda.tiles_computed(q, ref, mask, k=k, max_sq_dist=cap)
+    assert 0 <= done <= total
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+def test_gn_kernel_lanes_bit_equal(dev, lanes):
+    """K2 over lanes of different sizes (padded with masked-out queries),
+    scalar rows from device memory, rows and sums in float64: one launch,
+    each lane bit-equal to a one-lane launch on the unpadded lane, with
+    n_valid equal to and H, g within 1e-6 scaled of the float64 plain
+    version, and n_valid equal to the float32 one-lane launch's."""
+    k, cfg = 8, SlamConfig().matching
+    sizes = _LANE_SIZES[lanes][0]
+    r = np.random.default_rng(11)
+    clouds, poses = [], []
+    for b, qn in enumerate(sizes):
+        c = _gn_cloud(dev, "corner", qn, k, seed=20 + b)
+        s_ = _gn_cloud(dev, "surf", 2 * qn, k, seed=40 + b)
+        clouds.append((c, s_))
+        poses.append(torch.tensor(_GN_POSE) + torch.from_numpy(
+            r.normal(0, 0.01, 6).astype(np.float32)))
+
+    def pad(ts, n):
+        out = torch.zeros((len(ts), n) + ts[0].shape[1:], dtype=ts[0].dtype,
+                          device=dev)
+        for b, t in enumerate(ts):
+            out[b, :t.shape[0]] = t
+        return out
+
+    lanes_args = []
+    for j in (0, 1):
+        n = max(c[j][0].shape[0] for c in clouds)
+        lanes_args.append([pad([c[j][f] for c in clouds], n)
+                           for f in range(5)])
+    rows = torch.stack([gn_cuda.scalar_rows(p, cfg) for p in poses]).to(dev)
+    before = gn_cuda.gn_iteration_vec.launches
+    hg = gn_cuda.gn_iteration_lanes(rows, *lanes_args[0][:4],
+                                    *lanes_args[1][:4], lanes_args[0][4],
+                                    lanes_args[1][4], k)
+    assert gn_cuda.gn_iteration_vec.launches == before + 1
+    for b, (c, s_) in enumerate(clouds):
+        lane = (rows[b:b + 1], *(t[None] for t in c[:4]),
+                *(t[None] for t in s_[:4]), c[4][None], s_[4][None], k)
+        one = gn_cuda.gn_iteration_lanes(*lane)[0]
+        ref = gn_cuda.gn_iteration_lanes_plain(*lane)[0]
+        vec = gn_cuda.gn_iteration_vec(poses[b], *c[:4], *s_[:4], c[4],
+                                       s_[4], cfg, k)
+        torch.cuda.synchronize()
+        assert torch.equal(hg[b], one), b
+        assert int(one[42]) == int(ref[42]) == int(vec[42]) > 0
+        for a_, r_ in ((one[:36], ref[:36]), (one[36:42], ref[36:42])):
+            scale = float(r_.abs().max()) + 1e-9
+            torch.testing.assert_close(a_ / scale, r_ / scale, rtol=0,
+                                       atol=1e-6)
+
+
+def test_gn_solve_kernel_matches_plain(dev):
+    """K3 against its plain version on random normal equations (a
+    degenerate lane, a lane with too few rows, frozen lanes): flags and
+    `it` equal, pose within 1e-5, proj within 1e-4, scalar rows within
+    1e-5; the rows-only launch equals the plain rows."""
+    from lis_slam_torch.ops import gn_solve
+
+    cfg = SlamConfig().matching
+    r = np.random.default_rng(5)
+    hg, b = [], 16
+    for i in range(b):
+        J = r.normal(0, 1, (300, 6)) * np.float64([3, 3, 3, 20, 20, 20])
+        if i % 3 == 1:
+            J[:, 5] *= 1e-3
+        H = (J.T @ J).astype(np.float32)
+        g = r.normal(0, 5e-3 if i % 2 else 50, 6).astype(np.float32)
+        hg.append(np.concatenate([H.reshape(-1), g,
+                                  [30 if i % 4 == 3 else 300]]))
+    hg = torch.from_numpy(np.stack(hg).astype(np.float32)).to(dev)
+    pose0 = torch.from_numpy(r.normal(0, 0.1, (b, 6)).astype(np.float32))
+    st = gn_solve.init_state(pose0.to(dev))
+    st = st._replace(converged=torch.arange(b, device=dev) % 5 == 2,
+                     it=torch.full((b,), 2, dtype=torch.int32, device=dev))
+    before = gn_solve.solve.launches
+    new, rows = gn_solve.solve(hg, st, cfg)
+    ref, ref_rows = gn_solve.solve_plain(hg, st, cfg)
+    torch.cuda.synchronize()
+    assert gn_solve.solve.launches == before + 1
+    for f in ("degenerate", "converged", "n_valid", "it"):
+        assert torch.equal(getattr(new, f), getattr(ref, f)), f
+    torch.testing.assert_close(new.pose, ref.pose, rtol=0, atol=1e-5)
+    torch.testing.assert_close(new.proj, ref.proj, rtol=0, atol=1e-4)
+    torch.testing.assert_close(rows, ref_rows, rtol=0, atol=1e-5)
+    for f in ("delta_r", "delta_t"):
+        torch.testing.assert_close(getattr(new, f), getattr(ref, f),
+                                   rtol=1e-4, atol=1e-6)
+    assert bool(new.degenerate[4]) and bool(new.converged[7])
+    torch.testing.assert_close(gn_solve.scalar_rows(new, cfg),
+                               gn_solve.scalar_rows_plain(new.pose, cfg),
+                               rtol=0, atol=1e-5)

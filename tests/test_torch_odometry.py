@@ -232,9 +232,10 @@ from lis_slam_torch.graph import pose_graph
 from lis_slam_torch.imu import preintegration
 from lis_slam_torch.loop import epsc
 from lis_slam_torch.mapping import submap
-from lis_slam_torch.ops import (cuda_build, deskew, features, gn_cuda, icp,
-                                knn, knn_cuda, pretreatment, projection,
-                                scan_match, velocity_deskew, voxel)
+from lis_slam_torch.ops import (cuda_build, deskew, features, gn_cuda,
+                                gn_solve, icp, knn, knn_cuda, pretreatment,
+                                projection, scan_match, velocity_deskew, voxel)
+from lis_slam_torch.parallel import batched
 from lis_slam_torch.pipeline import (convert, driver, lio, odometry,
                                      semantic_odometry, slam, trajectory)
 from lis_slam_torch.utils import lin, profiling, se3, se3_np
@@ -249,6 +250,8 @@ scans = [synthetic.render_scan(world, gt[i], None, horizon=180, seed=i)
          for i in range(2)]
 res = driver.replay_odometry(scans, cfg, device="cpu")
 assert res.poses.shape == (2, 6) and np.isfinite(res.poses).all()
+lanes = batched.replay_batched([scans, scans], cfg, device="cpu")
+assert lanes.shape == (2, 2, 6) and np.isfinite(lanes).all()
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "lis_slam_tpu")]
 assert not loaded, loaded
@@ -269,6 +272,7 @@ def test_port_imports_and_steps_without_jax():
 
 def test_port_sources_never_import_jax():
     pkg = Path(lis_slam_torch.__file__).resolve().parent
+    assert (pkg / "parallel" / "batched.py").exists()  # covered below
     for path in pkg.rglob("*.py"):
         for line in path.read_text().splitlines():
             s = line.strip()
