@@ -70,6 +70,20 @@ hand-written CUDA kernels, through these phases (one or more lines each):
               so the checkpoint labels every keyframe, held to the JAX
               package's run of the same mode; then 40 lap scans with the
               darknet53 weights as rangenet_params (scans/s).
+ 12. lio_slam - SemanticSlam with cfg.imu.use_imu on the slam phase's lap:
+              (a) the JAX bench's lio_full_slam mode (bench.py:415-466:
+              constant 12-sample IMU windows of the lap's motion, no
+              drift hook), held to the JAX package's run (ATE, resets,
+              submaps, loop factors), scans/s, host IMU chain ms, host
+              syncs by stage; (b) the same scans without the IMU, with
+              the debug dump; (c) motion-distorted sweeps with their IMU
+              rows, fused and LiDAR-only (contrasts); (d)
+              predict_imu_rate's times and its start against the nav
+              state; (e) GPS fixes every 5th scan on a drifting lap
+              without loop closure (ATE with < 0.7 x without), with the
+              debug dump; (f) optimize_cg against the dense LM and its
+              times on the host and the card at 512 and 1024 nodes; K1/K2
+              at the path's shapes.
 
 Every kernel case (K1 at each path's shapes, K2's one launch per GN
 iteration at the front end's, the LIO path's, the refinement's and the
@@ -1063,10 +1077,14 @@ def _slam_drift_hook(pose6, idx):
     return se3_np.matrix_to_pose(Td @ se3_np.pose_to_matrix(pose6))
 
 
-def _render_plaza(cfg, dev):
+def _render_plaza(cfg, dev, distorted=False):
     """The plaza lap of bench.py:145-201 on the card: SLAM_LAP scans, then
     SLAM_EXTRA along the start of the lap on a second noise render; each
-    compacted as the bench's loader does, with its labels."""
+    compacted as the bench's loader does, with its labels. With
+    `distorted`, each sweep moves from gt[i] to gt[i + 1] over its 0.1 s,
+    and scan k's IMU rows of that motion (imu_rows: 24 samples over 0.11
+    s, at k * 0.1 s) come pre-rotated by extrinsic_rot^T. Returns (seq,
+    gt poses, IMU rows or None)."""
     import torch
     from lis_slam_torch.io import synthetic, synthetic_torch
     from lis_slam_torch.pipeline import driver
@@ -1076,17 +1094,24 @@ def _render_plaza(cfg, dev):
                                             dev)
     gt = synthetic.circular_trajectory(
         n + 1, radius=10.0, speed=2.0 * np.pi * 10.0 / (n * 0.1))
-    seq = []
+    R_ext = np.asarray(cfg.imu.extrinsic_rot, np.float64)
+    seq, imu = [], []
     for lap_seed, count in ((9, n), (11, SLAM_EXTRA)):
         gen = torch.Generator(device=dev)
         gen.manual_seed(lap_seed)
         for i in range(count):
+            nxt = torch.as_tensor(gt[i + 1]) if distorted else None
             p, lab, v = synthetic_torch.render_scan_device(
-                world, torch.as_tensor(gt[i]), gen)
+                world, torch.as_tensor(gt[i]), gen, next_pose6=nxt)
+            if distorted:
+                g, a, t = synthetic_torch.imu_rows(gt[i], gt[i + 1])
+                imu.append((t + len(seq) * 0.1,
+                            (g @ R_ext).astype(np.float32),
+                            (a @ R_ext).astype(np.float32)))
             seq.append((driver.compact_scan(p, v, cfg),
                         driver.compact_labels(p, v, lab, cfg)))
     gt_seq = np.concatenate([gt[:n], gt[:SLAM_EXTRA]])
-    return seq, gt_seq
+    return seq, gt_seq, (imu if distorted else None)
 
 
 def _graph_lm_ms(system, device, reps=3):
@@ -1108,7 +1133,7 @@ def _graph_lm_ms(system, device, reps=3):
     return (time.perf_counter() - t) / reps * 1e3, gb.to_device().nodes.shape[0]
 
 
-def _check_slam_kernels(system, cfg, dev):
+def _check_slam_kernels(system, cfg, dev, path="slam"):
     """K1 and K2 at the back end's shapes, against their plain versions:
     K1 at k=1 (dynamic removal) on the local map with holes and on an
     empty map; K1 bit-equal against the submap-sized targets (geometric
@@ -1150,7 +1175,8 @@ def _check_slam_kernels(system, cfg, dev):
         (f"sem registration Q{qw.shape[0]} N{t_sem.shape[0]} k{k} cap4", qr,
          t_sem, t_sem_m, k, 4.0),
     ]
-    worst_k1 = max(_check_knn("slam K1", name, qq, ref, mask, kk, cap, "slam")
+    worst_k1 = max(_check_knn(f"{path} K1", name, qq, ref, mask, kk, cap,
+                              path)
                    for name, qq, ref, mask, kk, cap in cases)
 
     # K2 with non-unit weights in [0.5, 2] at the refinement's capacities
@@ -1161,7 +1187,7 @@ def _check_slam_kernels(system, cfg, dev):
                       12, cfg, dev, 0.5, 2.0)
     surf = _gn_case("surf", 65536, cfg.submap.matched_surf_capacity, 11, cfg,
                     dev, 0.5, 2.0)
-    worst_k2 = _check_gn_pair("slam K2", "weighted refine shapes", "slam",
+    worst_k2 = _check_gn_pair(f"{path} K2", "weighted refine shapes", path,
                               corner, surf, cfg, pose)
     return worst_k1, worst_k2
 
@@ -1177,12 +1203,14 @@ SYNC_STAGES = {
     "_register_submaps_dispatch": "registration",
     "optimize_async": "LM", "add_keyframe": "submap close",
     "_on_submap": "submap close", "_consume": "window fetch",
+    "_lio_pre": "IMU chain", "_lio_post": "IMU chain",
 }
 
 
-def _slam_syncs(cfg, seq, dev):
+def _slam_syncs(cfg, seq, dev, hook=_slam_drift_hook, scan_kw=None):
     """Host syncs of a SemanticSlam run over `seq` (scan 0 through
-    flush_pipeline, drift hook on, as the timed run), by stage; every
+    flush_pipeline, with `hook` and scan i's process_scan keywords
+    scan_kw(i) (default its timestamp), as the timed run), by stage; every
     synchronizing CUDA call warns once under the sync debug mode."""
     import torch
     from lis_slam_torch.pipeline import slam
@@ -1200,14 +1228,16 @@ def _slam_syncs(cfg, seq, dev):
             f = f.f_back
         counts[stage] = counts.get(stage, 0) + 1
 
-    system = slam.SemanticSlam(cfg, pose_hook=_slam_drift_hook, device=dev)
+    system = slam.SemanticSlam(cfg, pose_hook=hook, device=dev)
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
             for i, (scan, labels) in enumerate(seq):
-                system.process_scan(scan, gt_labels=labels, timestamp=i * 0.1)
+                kw = (dict(timestamp=i * 0.1) if scan_kw is None
+                      else scan_kw(i))
+                system.process_scan(scan, gt_labels=labels, **kw)
             system.flush_pipeline()
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -1222,42 +1252,21 @@ def phase_slam(dev, out_dir):
 
     import torch
     from lis_slam_torch.config import SensorConfig, SlamConfig
-    from lis_slam_torch.pipeline import slam, trajectory
+    from lis_slam_torch.pipeline import trajectory
 
     base = SlamConfig().replace(sensor=SensorConfig(max_raw_points=65536))
     cfg = base.replace(matching=dataclasses.replace(base.matching,
                                                     gn_backend="pallas"))
     t = time.perf_counter()
-    seq, gt = _render_plaza(cfg, dev)
+    seq, gt, _ = _render_plaza(cfg, dev)
     torch.cuda.synchronize()
     log("slam", f"rendered and compacted {len(seq)} plaza scans on the card "
         f"in {time.perf_counter() - t:.2f} s; points/scan "
         f"{int(seq[0][0].valid.sum())} of {cfg.sensor.max_raw_points}")
 
-    warm = slam.SemanticSlam(cfg, pose_hook=_slam_drift_hook, device=dev)
-    for i in range(SLAM_WARMUP):
-        warm.process_scan(seq[i][0], gt_labels=seq[i][1], timestamp=i * 0.1)
-    warm.finish()
-    del warm
-
-    _zero_launches()
-    torch.cuda.reset_peak_memory_stats()
-    system = slam.SemanticSlam(cfg, pose_hook=_slam_drift_hook, device=dev)
-    system.process_scan(seq[0][0], gt_labels=seq[0][1], timestamp=0.0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(1, len(seq)):
-        system.process_scan(seq[i][0], gt_labels=seq[i][1],
-                            timestamp=i * 0.1)
-    system.flush_pipeline()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    res = system.finish()
-    counts = _launches()
-    peak = torch.cuda.max_memory_allocated()
+    _slam_run(cfg, seq[:SLAM_WARMUP], dev, "slam")  # warm-up
+    system, res, sps, counts, peak = _slam_run(cfg, seq, dev, "slam")
     n = len(seq)
-    check(res.poses.shape == (n, 6) and bool(np.isfinite(res.poses).all()),
-          "slam: corrected poses not finite (n, 6)")
     gt_rel = trajectory.relative_to_first(gt)
     ate = trajectory.ate_rmse(res.poses, gt_rel, align=True)
     raw = trajectory.ate_rmse(res.raw_poses, gt_rel, align=True)
@@ -1265,8 +1274,9 @@ def phase_slam(dev, out_dir):
     stages = {k: round(v["total_ms"], 3)
               for k, v in system.timer.report().items()}
     bar = 1.5 * JAX_SLAM_ATE + 0.02
-    log("slam", f"{(n - 1) / wall:.3f} scans/s ({n - 1} timed scans through "
-        f"flush_pipeline, {wall:.3f} s); ATE aligned corrected {ate:.4f} m, "
+    log("slam", f"{sps:.3f} scans/s ({n - 1} timed scans through "
+        f"flush_pipeline, {(n - 1) / sps:.3f} s); ATE aligned corrected "
+        f"{ate:.4f} m, "
         f"raw {raw:.4f} m (JAX CPU corrected {JAX_SLAM_ATE:.4f}, limit "
         f"{bar:.4f}); RPE-t {rpe_t:.4f} m, RPE-r {rpe_r:.4f} deg; submaps "
         f"{res.n_submaps}, loop factors {res.n_loops}, keyframes "
@@ -1300,7 +1310,7 @@ def phase_slam(dev, out_dir):
         json.dump({"ate_corrected_m": ate, "ate_raw_m": raw,
                    "jax_cpu_ate_corrected_m": JAX_SLAM_ATE,
                    "rpe_t_m": rpe_t, "rpe_r_deg": rpe_r,
-                   "scans_per_s": (n - 1) / wall, "stages_total_ms": stages,
+                   "scans_per_s": sps, "stages_total_ms": stages,
                    "n_submaps": res.n_submaps, "loop_factors": res.n_loops,
                    "keyframes": len(system.keyframes), "peak_bytes": peak,
                    "lm_ms": {d: v[0] for d, v in lm.items()},
@@ -1462,30 +1472,48 @@ def phase_semantic(dev, out_dir):
     return tree
 
 
-def _slam_infer_run(cfg, seq, dev, n, rangenet_params=None):
-    """SemanticSlam over seq[:n] without labels (lab_mode "infer"): scan 0,
-    then the timed rest through flush_pipeline. Returns (system, result,
-    scans/s, K1/K2 launches, peak bytes)."""
+def _slam_run(cfg, seq, dev, tag, labels=True, hook=_slam_drift_hook,
+              imu=None, gps=None, build_map=False, **system_kw):
+    """SemanticSlam over seq ((scan, labels) pairs) with `hook`: scan 0,
+    the timed rest through flush_pipeline, then finish(build_map). With
+    `labels` the ground-truth labels are fed, else the system's RangeNet
+    labels the keyframes. imu: [(time, gyro, accel)] per scan, scan 0
+    without a timestamp (the bench's lio_full_slam run); gps: gt poses for
+    a fix every GPS_EVERY scans (+ seeded 0.05 m noise, covariance 0.01,
+    timestamped). system_kw go to SemanticSlam. Returns (system, result,
+    scans/s, K1/K2/K3 launches, peak bytes)."""
     import torch
     from lis_slam_torch.pipeline import slam
 
     _zero_launches()
     torch.cuda.reset_peak_memory_stats()
-    system = slam.SemanticSlam(cfg, rangenet_params=rangenet_params,
-                               pose_hook=_slam_drift_hook, device=dev)
-    check(system.model is not None, "slam_infer: no RangeNet model")
-    system.process_scan(seq[0][0], timestamp=0.0)
+    system = slam.SemanticSlam(cfg, pose_hook=hook, device=dev, **system_kw)
+
+    def step(i):
+        kw = dict(timestamp=i * 0.1)
+        if imu is not None:
+            kw = dict(timestamp=i * 0.1 if i else None, imu_time=imu[i][0],
+                      imu_gyro=imu[i][1], imu_accel=imu[i][2])
+        system.process_scan(seq[i][0], gt_labels=seq[i][1] if labels
+                            else None, **kw)
+        if gps is not None and i % GPS_EVERY == 0:
+            noise = np.random.default_rng(i).normal(0, 0.05, 3)
+            system.add_gps(gps[i, 3:] + noise, np.full(3, 0.01),
+                           timestamp=i * 0.1)
+
+    step(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(1, n):
-        system.process_scan(seq[i][0], timestamp=i * 0.1)
+    for i in range(1, len(seq)):
+        step(i)
     system.flush_pipeline()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    res = system.finish()
-    check(res.poses.shape == (n, 6) and bool(np.isfinite(res.poses).all()),
-          "slam_infer: corrected poses not finite (n, 6)")
-    return (system, res, (n - 1) / wall, _launches(),
+    res = system.finish(build_map=build_map)
+    check(res.poses.shape == (len(seq), 6)
+          and bool(np.isfinite(res.poses).all()),
+          f"{tag}: corrected poses not finite (n, 6)")
+    return (system, res, (len(seq) - 1) / wall, _launches(),
             torch.cuda.max_memory_allocated())
 
 
@@ -1498,20 +1526,17 @@ def phase_slam_infer(seq, gt, darknet, dev, out_dir):
     import dataclasses
 
     from lis_slam_torch.config import SemanticConfig, SensorConfig, SlamConfig
-    from lis_slam_torch.pipeline import slam, trajectory
+    from lis_slam_torch.pipeline import trajectory
 
     base = SlamConfig().replace(sensor=SensorConfig(max_raw_points=65536),
                                 semantic=SemanticConfig(enabled=True))
     cfg = base.replace(matching=dataclasses.replace(base.matching,
                                                     gn_backend="pallas"))
-    warm = slam.SemanticSlam(cfg, pose_hook=_slam_drift_hook, device=dev)
-    for i in range(SLAM_WARMUP):
-        warm.process_scan(seq[i][0], timestamp=i * 0.1)
-    warm.finish()
-    del warm
-
+    _slam_run(cfg, seq[:SLAM_WARMUP], dev, "slam_infer", labels=False)
     n = len(seq)
-    system, res, sps, counts, peak = _slam_infer_run(cfg, seq, dev, n)
+    system, res, sps, counts, peak = _slam_run(cfg, seq, dev, "slam_infer",
+                                               labels=False)
+    check(system.model is not None, "slam_infer: no RangeNet model")
     gt_rel = trajectory.relative_to_first(gt)
     ate = trajectory.ate_rmse(res.poses, gt_rel, align=True)
     raw = trajectory.ate_rmse(res.raw_poses, gt_rel, align=True)
@@ -1548,8 +1573,9 @@ def phase_slam_infer(seq, gt, darknet, dev, out_dir):
 
     # cfg.semantic is the default SemanticConfig: the released darknet53
     n_full = SLAM_INFER_FULL_SCANS
-    system, res, sps_full, counts_full, peak_full = _slam_infer_run(
-        cfg, seq, dev, n_full, rangenet_params=darknet)
+    system, res, sps_full, counts_full, peak_full = _slam_run(
+        cfg, seq[:n_full], dev, "slam_infer", labels=False,
+        rangenet_params=darknet)
     log("slam_infer", f"full-size darknet53 weights (random, seeded) as "
         f"rangenet_params: {sps_full:.3f} scans/s over {n_full - 1} timed "
         f"scans, {len(system.keyframes)} keyframes, finite poses; K1 "
@@ -1561,6 +1587,381 @@ def phase_slam_infer(seq, gt, darknet, dev, out_dir):
     with open(os.path.join(out_dir, "slam_infer.json"), "w") as f:
         json.dump(out, f)
     return {"slam_infer": counts, "slam_infer_darknet53": counts_full}
+
+
+# ---------------------------------------------------------------------------
+# lio_slam: SemanticSlam with the IMU chain, GPS, debug dump, CG graph solve
+# ---------------------------------------------------------------------------
+
+# the JAX package's runs of the lio_slam phase's sequences on a CPU
+# (scripts/lio_full_slam_accuracy_bars.py: numpy renderer, gn_backend
+# "xla", aligned ATE): "lio" is part (a), "none" part (b), "dist_*" part
+# (c). The card's renderer draws other noise over the same geometry: (a)
+# may reach 1.5 x its corrected ATE + 0.02 m; its resets must equal and
+# its submaps lie within 1.
+JAX_LIO_SLAM = {
+    "lio": {"ate_corrected_m": 0.17735777675786218,
+            "ate_raw_m": 0.2966845250783563, "imu_resets": 0,
+            "n_submaps": 10, "loop_factors": 6, "keyframes": 47},
+    "none": {"ate_corrected_m": 0.01609776971642015,
+             "ate_raw_m": 0.01566679058953778, "imu_resets": 0,
+             "n_submaps": 10, "loop_factors": 0, "keyframes": 47},
+    "dist_lio": {"ate_corrected_m": 0.05668758434439395,
+                 "ate_raw_m": 0.05757739798068766, "imu_resets": 0,
+                 "n_submaps": 10, "loop_factors": 3, "keyframes": 47},
+    "dist_none": {"ate_corrected_m": 0.12595770152171096,
+                  "ate_raw_m": 0.27519694100060965, "imu_resets": 0,
+                  "n_submaps": 10, "loop_factors": 6, "keyframes": 47},
+}
+GPS_EVERY = 5  # a fix every 5th scan (tests/test_loop_graph.py:562)
+GPS_DRIFT = 0.002  # rad of yaw per scan (:551-556)
+GPS_RATIO = 0.7  # ATE with GPS < 0.7 x without (:572-575)
+CG_AGREE_M = 5e-3  # CG vs dense, 64-node drifted loop with a GPS prior
+CG_SIZES = (512, 1024)
+
+
+def _bench_imu(cfg, speed):
+    """The JAX bench's lio_full_slam IMU (bench.py:432-443): 12 constant
+    samples 0.01 s apart, yaw rate w = v / 10, specific force (0, v w, g),
+    pre-rotated by extrinsic_rot^T. Returns (time, gyro, accel)."""
+    omega = speed / 10.0
+    R_ext = np.asarray(cfg.imu.extrinsic_rot, np.float64)
+    g = np.tile(R_ext.T @ [0.0, 0.0, omega], (12, 1)).astype(np.float32)
+    a = np.tile(R_ext.T @ [0.0, speed * omega, cfg.imu.gravity],
+                (12, 1)).astype(np.float32)
+    return np.arange(12, dtype=np.float32) * 0.01, g, a
+
+
+def _drifted_square(gb, n):
+    """tests/test_loop_graph.py:281-304's square loop (biased odometry, one
+    exact loop closure) with a GPS prior at node n / 2. Returns (gt,
+    est) lists of (4, 4)."""
+    import torch
+    from lis_slam_torch.utils import se3, se3_np
+
+    gt = []
+    for k in range(n):
+        side, frac = 4 * k // n, (k % (n // 4)) / (n // 4)
+        t = {0: (10 * frac, 0), 1: (10, 10 * frac),
+             2: (10 - 10 * frac, 10), 3: (0, 10 - 10 * frac)}[side]
+        gt.append(se3_np.pose_to_matrix(np.array(
+            [0, 0, np.pi / 2 * (side % 4), t[0], t[1], 0])).astype(
+                np.float32))
+    bias = se3.se3_exp(torch.tensor([0.02, 0.01, 0, 0, 0, 0.002])).numpy()
+    est = [gt[0]]
+    gb.add_node(gt[0])
+    for k in range(1, n):
+        z = (np.linalg.inv(gt[k - 1]) @ gt[k]) @ bias
+        est.append(est[-1] @ z)
+        gb.add_node(est[-1])
+        gb.add_odom_edge(k - 1, k, z)
+    gb.add_loop_edge(n - 1, 0, np.linalg.inv(gt[-1]) @ gt[0], scale=100.0)
+    gb.add_gps_prior(n // 2, gt[n // 2], np.full(3, 0.01))
+    return gt, est
+
+
+def _cg_phase(dev):
+    """optimize_cg against the dense LM on a 64-node drifted loop with a
+    GPS prior (CG on the card, dense on the host), then the CG solve's
+    ms on the host and on the card at CG_SIZES nodes (the whole
+    GraphBuilder.optimize, readback included), and the end node's pull
+    at the first size."""
+    import dataclasses
+
+    import torch
+    from lis_slam_torch.config import GraphConfig
+    from lis_slam_torch.graph import pose_graph
+
+    cg = dataclasses.replace(GraphConfig(), solver="cg")
+
+    def builder(n, device, cfg=cg):
+        gb = pose_graph.GraphBuilder(cfg, max_nodes=n, max_edges=2 * n,
+                                     max_priors=8, device=device)
+        return (gb, *_drifted_square(gb, n))
+
+    card = builder(64, dev)[0].optimize()
+    dense = builder(64, "cpu", dataclasses.replace(cg, solver="dense"))[0]
+    err = float(np.abs(card - dense.optimize()).max())
+    out = {"agree_64_max_abs": err}
+    for n in CG_SIZES:
+        for name, device in (("host", torch.device("cpu")), ("card", dev)):
+            gb, gt, est = builder(n, device)
+            gb.optimize()  # warm-up
+            t = time.perf_counter()
+            reps = 2
+            for _ in range(reps):
+                gb.nodes = [e.copy() for e in est]
+                opt = gb.optimize()
+            out[f"{name}_ms_{n}"] = (time.perf_counter() - t) / reps * 1e3
+            if n == CG_SIZES[0]:
+                before = float(np.linalg.norm(est[-1][:3, 3] - gt[-1][:3, 3]))
+                after = float(np.linalg.norm(opt[-1][:3, 3] - gt[-1][:3, 3]))
+                anchor = float(np.abs(opt[0] - gt[0]).max())
+                out[f"pull_{name}"] = (before, after, anchor)
+    log("lio_slam", f"(f) optimize_cg (20 sweeps x 96 CG steps, float32): "
+        f"64-node drifted loop + GPS prior, card CG vs host dense max|dT| "
+        f"{err:.3g} (limit {CG_AGREE_M}); "
+        + ", ".join(f"{n} nodes host {out[f'host_ms_{n}']:.3f} ms, card "
+                    f"{out[f'card_ms_{n}']:.3f} ms" for n in CG_SIZES)
+        + "; end-node pull at "
+        f"{CG_SIZES[0]}: {out['pull_card'][0]:.3f} -> "
+        f"{out['pull_card'][1]:.3f} m (card), node 0 off its anchor by "
+        f"{out['pull_card'][2]:.2g}")
+    check(err <= CG_AGREE_M, f"lio_slam: CG {err} from the dense solve")
+    for name in ("host", "card"):
+        before, after, anchor = out[f"pull_{name}"]
+        check(after < 0.5 * before and anchor <= 1e-3,
+              f"lio_slam: CG on the {name} pulled {before} -> {after} m, "
+              f"anchor off by {anchor}")
+    return out
+
+
+def phase_lio_slam(seq, gt, dev, out_dir):
+    """SemanticSlam with cfg.imu.use_imu on the slam phase's lap: (a) the
+    JAX bench's lio_full_slam mode, held to the JAX package's run; (b) the
+    same scans without the IMU; (c) motion-distorted sweeps, fused and
+    LiDAR-only; (d) predict_imu_rate; (e) GPS fixes on a drifting lap
+    without loop closure, with the debug dump; (f) the CG graph solve.
+    K1 and K2 against their plain versions at the path's shapes."""
+    import dataclasses
+
+    import torch
+    from lis_slam_torch.config import SensorConfig, SlamConfig
+    from lis_slam_torch.io import kitti, synthetic
+    from lis_slam_torch.pipeline import driver, odometry, slam, trajectory
+    from lis_slam_torch.utils import se3
+    from lis_slam_torch.viz import debug
+
+    base = SlamConfig().replace(sensor=SensorConfig(max_raw_points=65536))
+    cfg0 = base.replace(matching=dataclasses.replace(base.matching,
+                                                     gn_backend="pallas"))
+    cfg = cfg0.replace(imu=dataclasses.replace(cfg0.imu, use_imu=True))
+    n = len(seq)
+    speed = 2.0 * np.pi * 10.0 / (SLAM_LAP * 0.1)
+    it0, g0, a0 = _bench_imu(cfg, speed)
+    imu = [(it0 + i * 0.1, g0, a0) for i in range(n)]
+    gt_rel = trajectory.relative_to_first(gt)
+    out = {}
+
+    def imu_kw(i):
+        return dict(timestamp=None if i == 0 else i * 0.1,
+                    imu_time=imu[i][0], imu_gyro=imu[i][1],
+                    imu_accel=imu[i][2])
+
+    # (a) the bench's lio_full_slam mode, after a warm-up run
+    _slam_run(cfg, seq[:SLAM_WARMUP], dev, "lio_slam", hook=None, imu=imu)
+    system, res, sps, counts, peak = _slam_run(cfg, seq, dev, "lio_slam",
+                                               hook=None, imu=imu)
+    jx = JAX_LIO_SLAM["lio"]
+    ate = trajectory.ate_rmse(res.poses, gt_rel, align=True)
+    raw = trajectory.ate_rmse(res.raw_poses, gt_rel, align=True)
+    rpe_t, rpe_r = trajectory.rpe(res.poses, gt_rel)
+    chain = system.timer.stats["imu_chain"]
+    imu_ms = chain.total_s / n * 1e3
+    stages = {k: round(v["total_ms"], 3)
+              for k, v in system.timer.report().items()}
+    bar = 1.5 * jx["ate_corrected_m"] + 0.02
+    log("lio_slam", f"(a) lio_full_slam: {sps:.3f} scans/s ({n - 1} timed "
+        f"scans through flush_pipeline); ATE aligned corrected {ate:.4f} m, "
+        f"raw {raw:.4f} m (JAX CPU {jx['ate_corrected_m']:.4f} / "
+        f"{jx['ate_raw_m']:.4f}, limit {bar:.4f}); RPE-t {rpe_t:.4f} m, "
+        f"RPE-r {rpe_r:.4f} deg; IMU resets {system.n_imu_resets} (JAX "
+        f"{jx['imu_resets']}); submaps {res.n_submaps} (JAX "
+        f"{jx['n_submaps']}), loop factors {res.n_loops} (JAX "
+        f"{jx['loop_factors']}), keyframes {len(system.keyframes)} (JAX "
+        f"{jx['keyframes']}); host IMU chain {imu_ms:.3f} ms/scan "
+        f"({chain.count} calls); K1 launches {counts[0]}, K2 launches "
+        f"{counts[1]}; peak device memory {peak} bytes")
+    log("lio_slam", "stage totals ms: " + json.dumps(stages))
+    out["a"] = dict(scans_per_s=sps, ate_corrected_m=ate, ate_raw_m=raw,
+                    rpe_t_m=rpe_t, rpe_r_deg=rpe_r,
+                    imu_resets=system.n_imu_resets,
+                    n_submaps=res.n_submaps, loop_factors=res.n_loops,
+                    keyframes=len(system.keyframes), imu_chain_ms=imu_ms,
+                    peak_bytes=peak, stages_total_ms=stages,
+                    poses=res.poses.tolist())
+    check(ate <= bar, f"lio_slam (a): corrected ATE {ate} > {bar}")
+    check(system.n_imu_resets == jx["imu_resets"],
+          f"lio_slam (a): {system.n_imu_resets} IMU resets, JAX "
+          f"{jx['imu_resets']}")
+    check(abs(res.n_submaps - jx["n_submaps"]) <= 1,
+          f"lio_slam (a): {res.n_submaps} submaps, JAX {jx['n_submaps']}")
+    check(res.n_loops >= 1, "lio_slam (a): no loop factor")
+    check(counts[0] > 0 and counts[1] > 0, f"lio_slam (a): launches {counts}")
+    syncs, s2 = _slam_syncs(cfg, seq, dev, hook=None, scan_kw=imu_kw)
+    n_kf = len(s2.keyframes)
+    log("lio_slam", f"(a) host syncs over a second, untimed run of the "
+        f"{n} scans through flush_pipeline, by stage: {json.dumps(syncs)}; "
+        f"front end {syncs.get('front end', 0) / n:.1f} and IMU chain "
+        f"{syncs.get('IMU chain', 0) / n:.1f} per scan, the rest "
+        f"{(sum(syncs.values()) - syncs.get('front end', 0) - syncs.get('IMU chain', 0)) / max(n_kf, 1):.1f}"
+        f" per keyframe ({n_kf})")
+    out["a"]["syncs_by_stage"] = syncs
+    del s2
+
+    # (d) predict_imu_rate on the last window of (a)
+    win = imu[-1]
+    rate = system.predict_imu_rate(*win)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        system.predict_imu_rate(*win)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) / 20 * 1e3
+    ev_ms = call_ms(lambda: system.predict_imu_rate(*win))
+    rate_h = rate.cpu().numpy()
+    start = float(np.linalg.norm(rate_h[0, 3:]
+                                 - system.fstate.imu.p.numpy()))
+    # ground truth at the sample times: linear between the last scan's
+    # pose and the next one on the lap (constant speed)
+    full = synthetic.circular_trajectory(SLAM_LAP + 1, radius=10.0,
+                                         speed=speed)
+    nxt = trajectory.relative_to_first(np.stack(
+        [gt[0], full[(n - 1) % SLAM_LAP + 1]]))[1]
+    frac = np.clip((win[0] - (n - 1) * 0.1) / 0.1, 0.0, 1.5)[:len(rate_h)]
+    gt_pos = (gt_rel[-1][None, 3:] * (1 - frac[:, None])
+              + nxt[None, 3:] * frac[:, None])
+    inc_err = float(np.linalg.norm((rate_h[:, 3:] - rate_h[0, 3:])
+                                   - (gt_pos - gt_pos[0]), axis=1).max())
+    log("lio_slam", f"(d) predict_imu_rate: ({rate.shape[0]}, 6) on "
+        f"{rate.device}, call {ev_ms:.4f} ms (CUDA events), host "
+        f"{host_ms:.4f} ms; first pose {start:.2e} m from the nav state's p "
+        f"(limit 1e-3); increments vs ground truth max {inc_err:.4f} m "
+        f"over {float(np.linalg.norm(gt_pos[-1] - gt_pos[0])):.4f} m")
+    out["d"] = dict(call_ms=ev_ms, host_ms=host_ms, start_m=start,
+                    increment_err_m=inc_err)
+    check(rate.shape == (len(win[0]), 6) and rate.device.type == "cuda"
+          and bool(torch.isfinite(rate).all()),
+          f"lio_slam (d): {tuple(rate.shape)} on {rate.device}")
+    check(start <= 1e-3, f"lio_slam (d): stream starts {start} m off")
+
+    # K1 / K2 at this path's shapes: the last scan's gyro-deskewed matched
+    # clouds against the odometry map, then the back end's shapes
+    sin = seq[-1][0]
+    wl = slam.ImuWindow(*driver.pad_imu_window(cfg, *win), float(win[0][0]))
+    sin, _chain = slam._lio_pre(system.fstate, sin, wl, cfg)
+    qc, qc_mask, qs, qs_mask = odometry._matched_clouds(
+        odometry.preprocess(sin, cfg), cfg)
+    st = system.fstate.odom
+    pose = torch.as_tensor(res.raw_poses[-1], dtype=torch.float32, device=dev)
+    inp = dict(corner=(qc, qc_mask, st.map_corner, st.map_corner_mask),
+               surf=(qs, qs_mask, st.map_surf, st.map_surf_mask), pose=pose)
+    T = se3.pose_to_matrix(pose)
+    k = cfg.matching.nn_cache_k
+    errs_k1 = [_check_knn("lio_slam K1", f"{mode} Q{q.shape[0]} "
+                          f"N{ref.shape[0]} k{k} cap4",
+                          se3.transform_points(T, _sorted(q, q_mask))
+                          .contiguous(), ref, ref_mask, k, 4.0, "lio_slam")
+               for mode, (q, q_mask, ref, ref_mask) in (
+                   ("corner", inp["corner"]), ("surf", inp["surf"]))]
+    _check_gn_real("lio_slam K2", "LIO-SLAM map", inp, cfg, "lio_slam")
+    k1_back, k2_back = _check_slam_kernels(system, cfg, dev, "lio_slam")
+    del inp, sin, system
+
+    # (b) the same scans without the IMU (a contrast, no check)
+    _s, res_b, sps_b, _c, _p = _slam_run(
+        cfg0, seq, dev, "lio_slam", hook=None,
+        debug_dir=os.path.join(out_dir, "debug_b"))
+    ate_b = trajectory.ate_rmse(res_b.poses, gt_rel, align=True)
+    raw_b = trajectory.ate_rmse(res_b.raw_poses, gt_rel, align=True)
+    pgms = sorted(f for f in os.listdir(os.path.join(out_dir, "debug_b"))
+                  if f.endswith(".pgm"))
+    shapes = {debug.read_pgm(os.path.join(out_dir, "debug_b", f)).shape
+              for f in pgms}
+    log("lio_slam", f"(b) no IMU, same scans: ATE aligned corrected "
+        f"{ate_b:.4f} m, raw {raw_b:.4f} m (JAX CPU "
+        f"{JAX_LIO_SLAM['none']['ate_corrected_m']:.4f} / "
+        f"{JAX_LIO_SLAM['none']['ate_raw_m']:.4f}), loop factors "
+        f"{res_b.n_loops}, submaps {res_b.n_submaps}, {sps_b:.3f} scans/s "
+        f"with the debug dump on: {len(pgms)} descriptor images {shapes} "
+        f"for {len(_s.keyframes)} keyframes")
+    out["b"] = dict(ate_corrected_m=ate_b, ate_raw_m=raw_b,
+                    loop_factors=res_b.n_loops, n_submaps=res_b.n_submaps)
+    check(len(pgms) == len(_s.keyframes) > 0 and len(shapes) == 1,
+          f"lio_slam (b): {len(pgms)} descriptor images, "
+          f"{len(_s.keyframes)} keyframes, shapes {shapes}")
+    del _s
+
+    # (c) motion-distorted sweeps: fused and LiDAR-only
+    t = time.perf_counter()
+    dseq, _gt, dimu = _render_plaza(cfg, dev, distorted=True)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t
+    c_out = {}
+    for name, c, w in (("fused", cfg, dimu), ("lidar_only", cfg0, None)):
+        s_c, r_c, _sps, _c, _p = _slam_run(c, dseq, dev, "lio_slam",
+                                           hook=None, imu=w)
+        c_out[name] = dict(
+            ate_corrected_m=trajectory.ate_rmse(r_c.poses, gt_rel,
+                                                align=True),
+            ate_raw_m=trajectory.ate_rmse(r_c.raw_poses, gt_rel, align=True),
+            imu_resets=s_c.n_imu_resets, loop_factors=r_c.n_loops,
+            n_submaps=r_c.n_submaps)
+        del s_c
+    del dseq
+    log("lio_slam", f"(c) motion-distorted sweeps (rendered in "
+        f"{render_s:.2f} s): fused ATE aligned corrected "
+        f"{c_out['fused']['ate_corrected_m']:.4f} m, raw "
+        f"{c_out['fused']['ate_raw_m']:.4f}, resets "
+        f"{c_out['fused']['imu_resets']} (JAX CPU "
+        f"{JAX_LIO_SLAM['dist_lio']['ate_corrected_m']:.4f} / "
+        f"{JAX_LIO_SLAM['dist_lio']['ate_raw_m']:.4f}); LiDAR-only corrected "
+        f"{c_out['lidar_only']['ate_corrected_m']:.4f} m, raw "
+        f"{c_out['lidar_only']['ate_raw_m']:.4f} (JAX CPU "
+        f"{JAX_LIO_SLAM['dist_none']['ate_corrected_m']:.4f} / "
+        f"{JAX_LIO_SLAM['dist_none']['ate_raw_m']:.4f})")
+    out["c"] = c_out
+    check(c_out["fused"]["imu_resets"] == 0,
+          f"lio_slam (c): {c_out['fused']['imu_resets']} IMU resets")
+
+    # (e) GPS on a drifting lap without loop closure, debug dump on
+    ce = cfg0.replace(
+        loop=dataclasses.replace(cfg0.loop, enabled=False),
+        graph=dataclasses.replace(cfg0.graph, odom_rot_sigma=1e-2,
+                                  odom_trans_sigma=1e-1))
+
+    def drift(pose6, idx):
+        from lis_slam_torch.utils import se3_np
+
+        c_, s_ = np.cos(GPS_DRIFT * idx), np.sin(GPS_DRIFT * idx)
+        Td = np.eye(4)
+        Td[:2, :2] = [[c_, -s_], [s_, c_]]
+        return se3_np.matrix_to_pose(Td @ se3_np.pose_to_matrix(pose6))
+
+    ddir = os.path.join(out_dir, "debug_gps")
+    _s, r_plain, *_ = _slam_run(ce, seq, dev, "lio_slam", hook=drift)
+    del _s
+    s_g, r_gps, *_ = _slam_run(ce, seq, dev, "lio_slam", hook=drift,
+                               gps=gt_rel, debug_dir=ddir, build_map=True)
+    ate_plain = trajectory.ate_rmse(r_plain.poses, gt_rel, align=False)
+    ate_gps = trajectory.ate_rmse(r_gps.poses, gt_rel, align=False)
+    with open(os.path.join(ddir, "loop_edges.json")) as f:
+        edges = json.load(f)
+    with open(os.path.join(ddir, "loop_markers.ply")) as f:
+        ply = f.read()
+    cloud = kitti.read_pcd(os.path.join(ddir, "global_map.pcd"))
+    n_priors = len(s_g.graph.priors) - 1
+    log("lio_slam", f"(e) GPS every {GPS_EVERY} scans, yaw drift "
+        f"{GPS_DRIFT} rad/scan, no loop closure: ATE (unaligned) with GPS "
+        f"{ate_gps:.4f} m, without {ate_plain:.4f} m (ratio "
+        f"{ate_gps / ate_plain:.3f}, limit {GPS_RATIO}); {n_priors} GPS "
+        f"priors, {s_g._gps_dropped} dropped; debug dump: "
+        f"{len(edges)} loop edges, marker PLY {len(ply)} bytes, global map "
+        f"{cloud.shape}")
+    out["e"] = dict(ate_gps_m=ate_gps, ate_plain_m=ate_plain,
+                    gps_priors=n_priors, gps_dropped=s_g._gps_dropped)
+    check(ate_gps < GPS_RATIO * ate_plain,
+          f"lio_slam (e): GPS ATE {ate_gps} vs {ate_plain}")
+    check(ply.startswith("ply") and "element edge" in ply
+          and edges == [] and cloud.shape == (len(r_gps.global_map), 4),
+          "lio_slam (e): debug files do not read back")
+    del s_g
+
+    # (f) the CG graph solve
+    out["f"] = _cg_phase(dev)
+    with open(os.path.join(out_dir, "lio_slam.json"), "w") as f:
+        json.dump(out, f)
+    return {"lio_slam": counts}, (max(max(errs_k1), k1_back), k2_back)
 
 
 # ---------------------------------------------------------------------------
@@ -1614,10 +2015,14 @@ def _warm_lanes(scans, cfg, lanes, steps):
     return states, stacked
 
 
-def _step_kernels(scans, cfg, lanes):
-    """One warm batched step (a keyframe-merge step) under torch.profiler:
-    (CUDA activities by name, K1/K2/K3 launches, device busy ms, wall
-    ms)."""
+def _step_kernels(scans, cfg, lanes, windows=3):
+    """One warm batched step (a keyframe-merge step) under torch.profiler,
+    traced in `windows` windows; the window with the most CUDA activities
+    is kept, since a trace can drop activities (once in a whole run on
+    the H100: 1363 recorded at B = 8 against 1431 at B = 1, where eight
+    repeated windows of the phase alone all read 1434 at both). Returns
+    (CUDA activities by name, K1/K2/K3 launches, device busy ms, wall ms,
+    aten ops, every window's activity total)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1628,24 +2033,29 @@ def _step_kernels(scans, cfg, lanes):
     # a second warm step of the same kind, so the allocator has the sizes
     batched.batched_odom_step(states, stacked[step], cfg)
     torch.cuda.synchronize()
-    _zero_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        batched.batched_odom_step(states, stacked[step], cfg)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    launches = _launches()
-    names: dict[str, int] = {}
-    busy, ops = 0.0, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n = e.name.split("(")[0][-80:]
-            names[n] = names.get(n, 0) + 1
-            busy += (e.time_range.end - e.time_range.start) / 1e3
-        elif e.name.startswith("aten::"):
-            ops += 1
-    return names, launches, busy, wall, ops
+    best, totals = None, []
+    for _ in range(windows):
+        _zero_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            batched.batched_odom_step(states, stacked[step], cfg)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        launches = _launches()
+        names: dict[str, int] = {}
+        busy, ops = 0.0, 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n = e.name.split("(")[0][-80:]
+                names[n] = names.get(n, 0) + 1
+                busy += (e.time_range.end - e.time_range.start) / 1e3
+            elif e.name.startswith("aten::"):
+                ops += 1
+        totals.append(sum(names.values()))
+        if best is None or totals[-1] > sum(best[0].values()):
+            best = (names, launches, busy, wall, ops)
+    return (*best, totals)
 
 
 def _rate(scans, cfg, lanes):
@@ -1965,13 +2375,15 @@ def phase_batched(scans, gt, cfg, dev, out_dir):
 
     per_b = {}
     for lanes in (1, BATCH_LANES):
-        names, launches, busy, wall, ops = _step_kernels(scans, cp, lanes)
+        names, launches, busy, wall, ops, totals = _step_kernels(
+            scans, cp, lanes)
         per_b[lanes] = (names, launches)
         log("batched", f"B {lanes}: one merge step launches K1 "
             f"{launches[0]}, K2 {launches[1]}, K3 {launches[2]}, CUDA "
-            f"activities {sum(names.values())} ({len(names)} kinds), aten "
-            f"ops {ops}; device busy {busy:.3f} ms of {wall:.3f} ms wall "
-            f"({busy / wall:.3f} busy share, profiler on)")
+            f"activities {sum(names.values())} ({len(names)} kinds; "
+            f"traced windows {totals}), aten ops {ops}; device busy "
+            f"{busy:.3f} ms of {wall:.3f} ms wall ({busy / wall:.3f} busy "
+            "share, profiler on)")
     (n1, l1), (n8, l8) = per_b[1], per_b[BATCH_LANES]
     diff = {k: (n1.get(k, 0), n8.get(k, 0)) for k in set(n1) | set(n8)
             if n1.get(k, 0) != n8.get(k, 0)}
@@ -2108,7 +2520,12 @@ def main() -> int:
         darknet = phase_semantic(dev, args.out)
         phase = "slam_infer"
         launches.update(phase_slam_infer(*plaza, darknet, dev, args.out))
-        del plaza, darknet
+        del darknet
+        phase = "lio_slam"
+        lio_launches, (k1_lio, k2_lio) = phase_lio_slam(*plaza, dev, args.out)
+        launches.update(lio_launches)
+        k1, k2 = max(k1, k1_lio), max(k2, k2_lio)
+        del plaza
         with open(os.path.join(args.out, "kernel_cases.json"), "w") as f:
             json.dump({"card": card, "cases": CASES}, f, indent=1)
     except BaseException as e:  # any failure: report and exit nonzero

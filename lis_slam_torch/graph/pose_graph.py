@@ -17,8 +17,12 @@ Nodes as 4x4 matrices with the right perturbation X <- X exp(delta);
 between-factor residual r = log(Z^-1 X_i^-1 X_j), J_i = -Ad((X_i^-1
 X_j)^-1), J_j = I. `GraphBuilder` pads nodes/edges/priors to the JAX
 package's power-of-two buckets so both solve the same-sized system.
-The matrix-free `optimize_cg` is not ported: solver="cg", or "auto" past
-`dense_max_nodes`, raises NotImplementedError.
+
+`optimize_cg` solves the same objective matrix-free (block-Jacobi
+preconditioned CG over the sparse block Hessian) for graphs past
+`dense_max_nodes`: GraphConfig.solver "cg", or "auto" past that size. Like
+the JAX package's `fori_loop`s it runs a fixed number of LM sweeps and CG
+steps, so it never reads back from the device.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 
 from ..config import GraphConfig
-from ..utils import se3
+from ..utils import lin, se3
 
 
 class PoseGraph(NamedTuple):
@@ -165,18 +169,109 @@ def optimize(graph: PoseGraph, damping: float = 1e-6, iterations: int = 20,
     return graph._replace(nodes=nodes)
 
 
+def optimize_cg(graph: PoseGraph, damping: float = 1e-6,
+                iterations: int = 20, cg_iters: int = 96,
+                robust_c: float = 3.0, gnc_start_c: float = 1e3
+                ) -> PoseGraph:
+    """Matrix-free LM: the objective, GNC schedule and accept/reject of
+    `optimize`, but each normal-equation solve is `cg_iters` steps of
+    block-Jacobi preconditioned CG over the sparse Hessian's 6x6 blocks
+    (O(E) per step; H is never formed). All `iterations` sweeps run, as in
+    the JAX package (no early exit).
+
+    The JAX package applies the preconditioner by solving each node's
+    damped diagonal block at every CG step; here those blocks are inverted
+    once per sweep with utils/lin.solve6_spd_batched (the same
+    Schur-complement solve, against the identity), so a step applies them
+    with one batched product. The Hessian product gathers both ends of
+    every edge, applies each edge's (12, 12) block, and scatters edges and
+    priors in one index_add: ~20 tensor ops a CG step."""
+    n = graph.nodes.shape[0]
+    dev, dt = graph.nodes.device, graph.nodes.dtype
+    ii, jj, pi = graph.edge_i, graph.edge_j, graph.prior_idx
+    ends = torch.cat([ii, jj])
+    rows = torch.cat([ends, pi])
+    n_e = ii.shape[0]
+    active = graph.node_mask.to(dt)[:, None]
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    nodes = graph.nodes
+    lam = torch.tensor(1e-4, dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+
+    def scatter(vals):
+        """Sum rows of (edge i ends, edge j ends, priors) onto the nodes."""
+        return torch.zeros((n,) + vals.shape[1:], dtype=dt,
+                           device=dev).index_add_(0, rows, vals)
+
+    for it in range(iterations):
+        c = _gnc_c(it, robust_c, gnc_start_c)
+        r_e, Ji, Jj, r_p, Jp = _masked_residuals(graph, nodes)
+        cost = _robust_cost(graph, r_e, r_p, c)
+        s = _robust_scale(r_e, graph.edge_robust, c)
+        r_e = r_e * s[:, None]
+        J = torch.cat([Ji, Jj], 2) * s[:, None, None]  # (E, 6, 12)
+        He = _block(J, J)  # (E, 12, 12): [[Hii, Hij], [Hji, Hjj]]
+        Hpp = _block(Jp, Jp)
+        ge = torch.einsum("eki,ek->ei", J, r_e)
+        b = scatter(torch.cat([ge[:, :6], ge[:, 6:],
+                               torch.einsum("eki,ek->ei", Jp, r_p)]))
+        # diagonal blocks (the preconditioner) + the damping and gauge-fix
+        # diagonal of the dense path
+        D = scatter(torch.cat([He[:, :6, :6], He[:, 6:, 6:], Hpp]))
+        dvec = (damping + lam * (torch.diagonal(D, dim1=1, dim2=2) + 1.0)
+                + (1.0 - active) * 1e6 + 1e-8)
+        Dd = D + torch.diag_embed(dvec)
+        Dinv = lin.solve6_spd_batched(Dd[:, None].expand(n, 6, 6, 6),
+                                      eye6.expand(n, 6, 6)).transpose(1, 2)
+
+        def matvec(x):
+            xe = x[ends].reshape(2, n_e, 6).permute(1, 0, 2).reshape(n_e, 12)
+            ye = (He @ xe[..., None])[..., 0]
+            yp = (Hpp @ x[pi][..., None])[..., 0]
+            return dvec * x + scatter(torch.cat([ye[:, :6], ye[:, 6:], yp]))
+
+        # PCG for H delta = -b from x = 0; converged solves freeze (rz ~ 0)
+        r = -b
+        z = (Dinv @ r[..., None])[..., 0]
+        rz = torch.sum(r * z)
+        x, p = torch.zeros_like(r), z
+        for _ in range(cg_iters):
+            live = rz > 1e-20
+            Ap = matvec(p)
+            alpha = torch.where(
+                live, rz / torch.clamp(torch.sum(p * Ap), min=1e-30), zero)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = (Dinv @ r[..., None])[..., 0]
+            rz_new = torch.sum(r * z)
+            beta = torch.where(live, rz_new / torch.clamp(rz, min=1e-30),
+                               zero)
+            p = z + beta * p
+            rz = rz_new
+        cand = nodes @ se3.se3_exp(x * active)
+        r_e2, _, _, r_p2, _ = _masked_residuals(graph, cand)
+        accept = _robust_cost(graph, r_e2, r_p2, c) < cost
+        nodes = torch.where(accept, cand, nodes)
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9), lam * 4.0)
+    return graph._replace(nodes=nodes)
+
+
 class GraphBuilder:
     """Host-side incremental graph (the iSAM2 update pattern: a node + odom
-    factor per submap, loop factors, GPS priors), solved on `device`."""
+    factor per submap, loop factors, GPS priors), solved on `device` by
+    the dense LM and on `cg_device` (default `device`) by optimize_cg."""
 
     def __init__(self, cfg: GraphConfig, max_nodes: int = 256,
                  max_edges: int = 1024, max_priors: int = 256,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu",
+                 cg_device: torch.device | str | None = None):
         self.cfg = cfg
         self.max_nodes = max_nodes
         self.max_edges = max_edges
         self.max_priors = max_priors
         self.device = torch.device(device)
+        self.cg_device = self.device if cg_device is None else torch.device(
+            cg_device)
         self.nodes: list[np.ndarray] = []
         self.edges: list[tuple] = []
         self.priors: list[tuple] = []
@@ -218,7 +313,8 @@ class GraphBuilder:
             b *= 2
         return min(b, cap)
 
-    def to_device(self) -> PoseGraph:
+    def to_device(self, device: torch.device | None = None) -> PoseGraph:
+        """The padded graph tensors on `device` (default self.device)."""
         n, e, p = len(self.nodes), len(self.edges), len(self.priors)
         assert (n <= self.max_nodes and e <= self.max_edges
                 and p <= self.max_priors)
@@ -243,7 +339,7 @@ class GraphBuilder:
             pidx[k], pz[k], pw[k], pmask[k] = i, z, w, True
 
         def t(a):
-            return torch.from_numpy(a).to(self.device)
+            return torch.from_numpy(a).to(device or self.device)
 
         return PoseGraph(
             nodes=t(nodes), node_mask=t(np.arange(pn) < n), edge_i=t(ei),
@@ -257,20 +353,21 @@ class GraphBuilder:
         return self.consume_optimized(n, nodes.cpu().numpy())
 
     def optimize_async(self, iterations: int | None = None):
-        """Run the LM solve; returns (n_nodes, node tensor on `device`).
-        The SLAM pipeline reads it back at its next drain."""
-        g = self.to_device()
-        pn = g.nodes.shape[0]
-        if self.cfg.solver == "cg" or (self.cfg.solver == "auto"
-                                       and pn > self.cfg.dense_max_nodes):
-            raise NotImplementedError(
-                "the matrix-free optimize_cg is not ported: use "
-                f"solver='dense' (or 'auto' with at most "
-                f"{self.cfg.dense_max_nodes} padded nodes, here {pn})")
-        out = optimize(g, damping=self.cfg.damping,
-                       iterations=iterations or self.cfg.max_iterations,
-                       robust_c=self.cfg.robust_c,
-                       gnc_start_c=self.cfg.gnc_start_c)
+        """Run the LM solve, dense or matrix-free CG by cfg.solver ("auto":
+        CG past cfg.dense_max_nodes padded nodes); returns (n_nodes, node
+        tensor on `device`). The SLAM pipeline reads it back at its next
+        drain."""
+        cfg = self.cfg
+        kw = dict(damping=cfg.damping,
+                  iterations=iterations or cfg.max_iterations,
+                  robust_c=cfg.robust_c, gnc_start_c=cfg.gnc_start_c)
+        padded = self._bucket(len(self.nodes), self.max_nodes)
+        if cfg.solver == "cg" or (cfg.solver == "auto"
+                                  and padded > cfg.dense_max_nodes):
+            out = optimize_cg(self.to_device(self.cg_device),
+                              cg_iters=cfg.cg_iters, **kw)
+        else:
+            out = optimize(self.to_device(), **kw)
         return len(self.nodes), out.nodes
 
     def consume_optimized(self, n: int, nodes_np: np.ndarray) -> np.ndarray:

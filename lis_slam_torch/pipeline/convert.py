@@ -164,26 +164,53 @@ def sem_state_to_numpy(state) -> dict:
     return {f: _np(getattr(state, f)) for f in state._fields}
 
 
+# the JAX FusedState's IMU fields (cfg.imu.use_imu), besides imu/prev_pre
+_IMU_ARRAYS = ("imu_pose0", "imu_v0", "prev_imu_time", "prev_imu_gyro",
+               "prev_imu_accel")
+_IMU_FLAGS = ("imu_have_prev", "imu_fail")
+
+
 def fused_state_from_numpy(snap: dict, device: torch.device | str = "cpu"):
     """FusedState from {"odom": {...}, "sem": {...}, "last_frontend",
-    "last_refined"} (the JAX FusedState's IMU fields are not ported)."""
+    "last_refined", "imu": None or the IMU fields} (fused_state_to_numpy's
+    layout). The IMU fields go to the host in float64."""
     from .slam import FusedState
 
+    odom = odom_state_from_numpy(snap["odom"], device)
+    imu = {}
+    if snap.get("imu") is not None:
+        d = snap["imu"]
+        imu = dict(imu=imu_state_from_numpy(d["imu"]),
+                   prev_pre=preintegrated_from_numpy(d["prev_pre"]),
+                   prev_imu_valid=torch.from_numpy(
+                       np.array(d["prev_imu_valid"], bool)),
+                   prev_scan_start=float(np.float32(d["prev_scan_start"])),
+                   odom_pose_host=_host(snap["odom"]["pose"]),
+                   **{f: _host(d[f]) for f in _IMU_ARRAYS},
+                   **{f: bool(d[f]) for f in _IMU_FLAGS})
     return FusedState(
-        odom=odom_state_from_numpy(snap["odom"], device),
-        sem=sem_state_from_numpy(snap["sem"], device),
+        odom=odom, sem=sem_state_from_numpy(snap["sem"], device),
         last_frontend=_dev(snap["last_frontend"], device, np.float32),
-        last_refined=_dev(snap["last_refined"], device, np.float32))
+        last_refined=_dev(snap["last_refined"], device, np.float32), **imu)
 
 
 def fused_state_to_numpy(fstate) -> dict:
     """The layout of fused_state_from_numpy, from either package's
-    FusedState."""
+    FusedState; "imu" is None without the IMU fields."""
+    imu = None
+    if getattr(fstate, "imu", None) is not None:
+        imu = dict(imu={f: _np(v) for f, v in fstate.imu._asdict().items()},
+                   prev_pre={f: _np(v) for f, v in
+                             fstate.prev_pre._asdict().items()},
+                   prev_imu_valid=_np(fstate.prev_imu_valid).astype(bool),
+                   prev_scan_start=np.float32(_np(fstate.prev_scan_start)),
+                   **{f: _np(getattr(fstate, f)) for f in _IMU_ARRAYS},
+                   **{f: bool(_np(getattr(fstate, f))) for f in _IMU_FLAGS})
     return dict(odom={f: _np(getattr(fstate.odom, f))
                       for f in OdomState._fields},
                 sem=sem_state_to_numpy(fstate.sem),
                 last_frontend=_np(fstate.last_frontend),
-                last_refined=_np(fstate.last_refined))
+                last_refined=_np(fstate.last_refined), imu=imu)
 
 
 def loop_detector_to_numpy(det) -> dict:

@@ -22,13 +22,24 @@ Labels come from `gt_labels` ("gt"), from RangeNet inference on
 keyframes ("infer": cfg.semantic.enabled and no labels; the in-repo
 checkpoint unless `rangenet_params` are given), or not at all ("none").
 
-Not ported (each raises NotImplementedError): the IMU fusion inside
-SemanticSlam (cfg.imu.use_imu), GPS (`add_gps`), `debug_dir`, and
-`predict_imu_rate`.
+With cfg.imu.use_imu, `slam_step` runs the LIO chain of the JAX package's
+fused step (IMUPreintegration, subMapOptmizationNode.cpp:2007-2219) around
+the front-end step: the previous IMU window preintegrated over the
+realized inter-scan interval gives the initial guess, the current window
+(lidar frame) the gyro deskew, and the lidar pose the bias/velocity
+update and the sticky failure latch. The chain runs on the host in
+float64, as pipeline/lio.py's `LioOdometry` runs it (the same functions),
+with one readback of the step's pose per scan. A latched failure resets
+the nav state when its drain window is consumed, one window late, as in
+the JAX package. `add_gps` time-matches fixes to keyframes and adds graph
+priors; `predict_imu_rate` gives the IMU-rate pose stream; `debug_dir`
+dumps the rviz-equivalent files (viz/debug.py).
 """
 
 from __future__ import annotations
 
+import contextlib
+import warnings
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -37,20 +48,26 @@ import torch
 
 from ..config import SlamConfig
 from ..graph import pose_graph
+from ..imu import preintegration as pi
 from ..loop import epsc
 from ..mapping import submap as sm
 from ..ops import icp as icp_ops
 from ..ops import knn, scan_match, voxel
 from ..semantic import inference as sem_inf
 from ..utils import device as devices, profiling, se3, se3_np
-from . import odometry, semantic_odometry as semo, trajectory
+from . import driver, lio, odometry, semantic_odometry as semo, trajectory
 
 # dense category indices in labels.CATEGORY_IDS order
 _DYN, _GND, _BLD, _POLE, _OUT = range(5)
 
 
+_HOST = dict(dtype=torch.float64, device="cpu")
+
+
 class FusedState(NamedTuple):
-    """State threaded through the per-scan step."""
+    """State threaded through the per-scan step. The IMU fields
+    (cfg.imu.use_imu; None otherwise) are those of the JAX FusedState,
+    held on the host in float64, plus a host copy of the odometry pose."""
 
     odom: odometry.OdomState
     sem: semo.SemanticOdomState
@@ -58,6 +75,32 @@ class FusedState(NamedTuple):
     # initial-guess composition
     last_frontend: torch.Tensor  # (6,)
     last_refined: torch.Tensor  # (6,)
+    imu: pi.ImuState | None = None
+    prev_pre: pi.PreintegratedImu | None = None  # interval [i-2, i-1]
+    imu_pose0: torch.Tensor | None = None  # (6,) pose at prev window start
+    imu_v0: torch.Tensor | None = None  # (3,) velocity estimate at pose0
+    imu_have_prev: bool = False  # prev_pre is live (two-window update)
+    imu_fail: bool = False  # sticky failure latch
+    # the previous scan's raw window (lidar frame), preintegrated at the
+    # next step clipped to [prev_scan_start, scan_start]
+    prev_imu_time: torch.Tensor | None = None  # (M,)
+    prev_imu_gyro: torch.Tensor | None = None  # (M, 3)
+    prev_imu_accel: torch.Tensor | None = None  # (M, 3)
+    prev_imu_valid: torch.Tensor | None = None  # (M,) bool
+    prev_scan_start: float = 0.0
+    odom_pose_host: torch.Tensor | None = None  # (6,) == odom.pose
+
+
+class ImuWindow(NamedTuple):
+    """One scan's IMU window on the host, padded to max_imu_per_scan rows
+    (driver.pad_imu_window), raw IMU frame, absolute seconds, and the
+    scan's start stamp on the same clock."""
+
+    time: np.ndarray  # (M,)
+    gyro: np.ndarray  # (M, 3)
+    accel: np.ndarray  # (M, 3)
+    valid: np.ndarray  # (M,) bool
+    scan_start: float
 
 
 class StepOut(NamedTuple):
@@ -86,6 +129,27 @@ class StepOut(NamedTuple):
     class_w: torch.Tensor | None = None
     desc_sel: torch.Tensor | None = None  # (R, S)
     signature: torch.Tensor | None = None  # (360, 4)
+    # IMU (cfg.imu.use_imu): the sticky failure latch after this step, and
+    # whether this step's clipped preintegration window was empty
+    imu_fail: bool = False
+    imu_win_empty: bool = False
+
+
+def _imu_fields(cfg: SlamConfig) -> dict:
+    """The IMU fields of a fresh FusedState (JAX SemanticSlam.__init__)."""
+    m = cfg.imu.max_imu_per_scan
+    z = dict(prev_imu_time=torch.zeros(m, **_HOST),
+             prev_imu_gyro=torch.zeros((m, 3), **_HOST),
+             prev_imu_accel=torch.zeros((m, 3), **_HOST),
+             prev_imu_valid=torch.zeros(m, dtype=torch.bool))
+    return dict(
+        imu=pi.init_imu_state(cfg.imu),
+        prev_pre=pi.preintegrate(z["prev_imu_time"], z["prev_imu_gyro"],
+                                 z["prev_imu_accel"], z["prev_imu_valid"],
+                                 torch.zeros(3, **_HOST),
+                                 torch.zeros(3, **_HOST), cfg.imu),
+        imu_pose0=torch.zeros(6, **_HOST), imu_v0=torch.zeros(3, **_HOST),
+        prev_scan_start=0.0, odom_pose_host=torch.zeros(6, **_HOST), **z)
 
 
 def init_fused_state(cfg: SlamConfig, device: torch.device | str = "cuda"
@@ -94,17 +158,123 @@ def init_fused_state(cfg: SlamConfig, device: torch.device | str = "cuda"
     return FusedState(
         odom=odometry.init_state(cfg, device), sem=semo.init_state(cfg, device),
         last_frontend=torch.zeros(6, device=device),
-        last_refined=torch.zeros(6, device=device))
+        last_refined=torch.zeros(6, device=device),
+        **(_imu_fields(cfg) if cfg.imu.use_imu else {}))
+
+
+def _scan_window(scan: odometry.ScanInput, cfg: SlamConfig) -> ImuWindow:
+    """The IMU window a ScanInput carries, read to the host, accel rows
+    padded to max_imu_per_scan with the gravity-neutral [0, 0, g] (JAX
+    slam_step's trace-time normalisation); no window reads as an empty
+    one."""
+    m = cfg.imu.max_imu_per_scan
+
+    def host(x, shape):
+        return (np.zeros(shape, np.float32) if x is None
+                else x.detach().cpu().numpy())
+
+    it = host(scan.imu_time, m)
+    valid = (np.zeros(m, bool) if scan.imu_valid is None
+             else scan.imu_valid.cpu().numpy())
+    ia = np.zeros((m, 3), np.float32)
+    ia[:, 2] = cfg.imu.gravity
+    if scan.imu_accel is not None:
+        k = min(scan.imu_accel.shape[0], m)
+        ia[:k] = host(scan.imu_accel, None)[:k]
+    start = scan.scan_start
+    start = float(start.cpu()) if isinstance(start, torch.Tensor) else start
+    return ImuWindow(it, host(scan.imu_gyro, (m, 3)), ia, valid, start)
+
+
+def _lio_pre(fstate: FusedState, scan: odometry.ScanInput, win: ImuWindow,
+             cfg: SlamConfig):
+    """JAX slam_step's pre-odometry LIO chain (:166-207) on the host: the
+    previous window preintegrated over [prev_scan_start, scan_start], the
+    predicted pose as the initial guess, the current window in the lidar
+    frame for the gyro deskew, and the predicted body velocity for the
+    positional deskew once the velocity estimate is live. Returns (scan
+    for the step, chain values for _lio_post)."""
+    dev = scan.points.device
+    start = float(np.float32(win.scan_start))
+    it, iv = torch.as_tensor(win.time, **_HOST), torch.as_tensor(win.valid)
+    pre, guess, g_l, a_l, vel_body, window_ok = lio._lio_prestep(
+        torch.as_tensor(win.gyro, **_HOST), torch.as_tensor(win.accel, **_HOST),
+        fstate.prev_imu_time, fstate.prev_imu_gyro, fstate.prev_imu_accel,
+        fstate.prev_imu_valid, fstate.prev_scan_start, start, fstate.imu, cfg)
+    # JAX gates on `window_ok & frame_idx > 0`. The window a step stashes
+    # is what makes the next clipped window non-empty, and a fresh state's
+    # is empty, so window_ok already implies a previous step.
+    window_ok = bool(window_ok)
+    if not (fstate.imu_have_prev and window_ok):
+        vel_body = torch.zeros(3, **_HOST)
+    # the step's inputs in one host-to-device copy, from pinned memory on
+    # a card so that it does not wait for the device
+    m = it.shape[0]
+    buf = torch.cat([it, g_l.reshape(-1), iv.to(it.dtype),
+                     torch.tensor([start], **_HOST), vel_body, guess]).float()
+    buf = (buf.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda"
+           else buf.to(dev))
+    scan = scan._replace(
+        imu_time=buf[:m], imu_gyro=buf[m:4 * m].reshape(m, 3),
+        imu_valid=buf[4 * m:5 * m] > 0.5, scan_start=buf[5 * m],
+        deskew_vel=buf[5 * m + 1:5 * m + 4], init_guess=buf[5 * m + 4:],
+        init_guess_valid=bool(scan.init_guess_valid) or window_ok)
+    return scan, (pre, g_l, a_l, it, iv, start, window_ok)
+
+
+def _lio_post(fstate: FusedState, pose: torch.Tensor, chain,
+              cfg: SlamConfig) -> dict:
+    """JAX slam_step's IMU post-step (:211-264) from the step's pose, read
+    to the host (the chain's one readback): the two- or one-window
+    bias/velocity update, or the re-anchor when the window was empty; the
+    failure latch; the stash of this scan's window. Returns the
+    FusedState's new IMU fields."""
+    pre, g_l, a_l, it, iv, start, window_ok = chain
+    pose_h = pose.to(**_HOST)
+    prev_pose = fstate.odom_pose_host
+    fail = fstate.imu_fail
+    if window_ok and fstate.imu_have_prev:
+        imu, v1, fail = lio._lio_poststep2(
+            fstate.imu, fstate.prev_pre, pre, fstate.imu_pose0, prev_pose,
+            pose_h, fstate.imu_v0, fail, cfg)
+    elif window_ok:
+        imu, fail = lio._lio_poststep(fstate.imu, pre, prev_pose, pose_h,
+                                      fail, cfg)
+        v1 = imu.v  # the window-mean velocity seeds the next v0
+    else:
+        imu = fstate.imu._replace(R=se3.euler_to_rot(pose_h[:3]),
+                                  p=pose_h[3:])
+        v1 = torch.zeros(3, **_HOST)
+    return dict(imu=imu, prev_pre=pre, imu_pose0=prev_pose, imu_v0=v1,
+                imu_have_prev=window_ok, imu_fail=fail, prev_imu_time=it,
+                prev_imu_gyro=g_l, prev_imu_accel=a_l, prev_imu_valid=iv,
+                prev_scan_start=start, odom_pose_host=pose_h)
+
+
+def _imu_reset(fstate: FusedState, cfg: SlamConfig) -> FusedState:
+    """resetParams (failureDetection -> reinitialize,
+    subMapOptmizationNode.cpp:2153-2156, 2222-2238): re-anchor the nav
+    state at the current lidar pose with fresh biases."""
+    pose = fstate.odom_pose_host
+    imu = pi.init_imu_state(cfg.imu)._replace(R=se3.euler_to_rot(pose[:3]),
+                                              p=pose[3:])
+    return fstate._replace(imu=imu, imu_have_prev=False, imu_fail=False)
 
 
 def slam_step(fstate: FusedState, scan: odometry.ScanInput,
               lab_raw: torch.Tensor | None, cfg: SlamConfig, lab_mode: str,
-              model=None, infer_cfg: SlamConfig | None = None):
+              model=None, infer_cfg: SlamConfig | None = None,
+              imu_window: ImuWindow | None = None, timer=None):
     """One scan: the front-end step, and on keyframes the semantic
     refinement (lab_mode "gt": labels from `lab_raw`, per raw point;
     "infer": labels inferred by the RangeNet `model` under `infer_cfg` on
     the front end's range image; "none": no semantics), the keyframe class
     clouds and the loop descriptors. Returns (state, StepOut).
+
+    With cfg.imu.use_imu and a state holding the IMU fields, the LIO chain
+    runs around the front-end step on `imu_window` (default: the window
+    the scan carries, read to the host); a `timer` (StageTimer) charges it
+    to stage "imu_chain".
 
     The JAX package infers on a second projection of the pretreated,
     undeskewed scan; the front end's projection holds the same winners
@@ -114,7 +284,19 @@ def slam_step(fstate: FusedState, scan: odometry.ScanInput,
         raise ValueError(f"lab_mode {lab_mode!r}")
     if lab_mode == "infer" and (model is None or infer_cfg is None):
         raise ValueError("lab_mode 'infer' needs model and infer_cfg")
+    use_lio = cfg.imu.use_imu and fstate.imu is not None
+    imu_out = {}
+    if use_lio:
+        with _stage(timer):
+            scan, chain = _lio_pre(
+                fstate, scan, imu_window or _scan_window(scan, cfg), cfg)
     odom2, out, fc, ext = odometry._odom_step_impl(fstate.odom, scan, cfg)
+    if use_lio:
+        with _stage(timer):
+            fstate = fstate._replace(**_lio_post(fstate, out.pose, chain,
+                                                 cfg))
+        imu_out = dict(imu_fail=fstate.imu_fail,
+                       imu_win_empty=not chain[-1])
     clouds = dict(
         corner_xyz=fc.corner_xyz, corner_mask=fc.corner_mask,
         surf_xyz=fc.surf_xyz, surf_mask=fc.surf_mask,
@@ -127,7 +309,7 @@ def slam_step(fstate: FusedState, scan: odometry.ScanInput,
                  degenerate=out.degenerate)
     if not out.is_keyframe:
         return fstate._replace(odom=odom2), StepOut(
-            pose=out.pose, refined=out.pose, **flags, **clouds)
+            pose=out.pose, refined=out.pose, **flags, **clouds, **imu_out)
 
     sem, lf, lr = fstate.sem, fstate.last_frontend, fstate.last_refined
     dev = out.pose.device
@@ -165,14 +347,19 @@ def slam_step(fstate: FusedState, scan: odometry.ScanInput,
         fc.surf_xyz, fc.surf_intensity, lab_surf, fc.surf_mask,
         fc.sharp_corner_xyz, fc.sharp_corner_mask,
         fc.sharp_surf_xyz, fc.sharp_surf_mask, cfg.loop)
-    new_state = FusedState(odom=odom2, sem=sem, last_frontend=out.pose,
-                           last_refined=refined)
+    new_state = fstate._replace(odom=odom2, sem=sem, last_frontend=out.pose,
+                                last_refined=refined)
     return new_state, StepOut(
         pose=out.pose, refined=refined, **flags, **clouds,
         lab_surf=lab_surf, class_xyz=class_xyz, class_mask=class_mask,
         class_w=class_w,
         desc_sel=epsc.select_descriptor(desc, cfg.loop.descriptor),
-        signature=desc.signature)
+        signature=desc.signature, **imu_out)
+
+
+def _stage(timer):
+    return (timer.stage("imu_chain") if timer is not None
+            else contextlib.nullcontext())
 
 
 def _register_submaps_geo(prev_corner, prev_corner_mask, prev_surf,
@@ -275,6 +462,7 @@ class _PendingScan(NamedTuple):
     idx: int
     timestamp: float
     out: StepOut
+    imu_supplied: bool = False  # the caller passed an IMU window
 
 
 class SemanticSlam:
@@ -283,21 +471,23 @@ class SemanticSlam:
     `pose_hook(pose6, scan_idx) -> pose6` transforms the front-end pose
     before the back end consumes it (drift injection, external odometry);
     its delta is composed onto the refined pose, so keyframes, submaps and
-    loops carry it."""
+    loops carry it. `debug_dir`: dump descriptor images per keyframe, loop
+    markers and the global-map cloud there (viz/debug.py)."""
 
     def __init__(self, cfg: SlamConfig, rangenet_params=None,
                  pose_hook=None, debug_dir: str | None = None,
                  device: torch.device | str = "cuda"):
         self.device = devices.resolve(device)
-        if cfg.imu.use_imu:
-            raise NotImplementedError(
-                "IMU fusion inside SemanticSlam (cfg.imu.use_imu) is not "
-                "ported; pipeline.lio.LioOdometry runs the LIO front end")
-        if debug_dir is not None:
-            raise NotImplementedError("the debug dump is not ported")
         self.cfg = cfg
         self.pose_hook = pose_hook
+        self.debug = None
+        if debug_dir is not None:
+            from ..viz.debug import DebugDumper
+
+            self.debug = DebugDumper(debug_dir)
         self.fstate = init_fused_state(cfg, self.device)
+        self.n_imu_resets = 0
+        self._imu_inert_scans = 0  # consecutive supplied-but-empty windows
         # semantic inference (semanticFusionNode): with semantics enabled,
         # RangeNet labels each keyframe; its weights are `rangenet_params`
         # (a flax-layout tree, architecture cfg.semantic) or the in-repo
@@ -322,15 +512,28 @@ class SemanticSlam:
         # small dense solve, with an exit-flag readback per sweep, is
         # launch-bound on a GPU. The plaza lap's final 10-node solve took
         # 184-252 ms on an H100 against 68-98 ms on its host CPU, float32
-        # both.
+        # both. The CG solve past dense_max_nodes runs on `device`: it has
+        # no readback, and over three runs on that machine (a drifted
+        # loop, 20 sweeps x 96 CG steps) its median was 3471 ms on the
+        # card against 3738 on the host at 512 nodes, and 3574 against
+        # 5039 at 1024, where the card won every run; both sides are bound
+        # by launching ~20 small ops a CG step.
         self.graph = pose_graph.GraphBuilder(
             cfg.graph, max_nodes=cfg.submap.max_submaps,
             max_edges=cfg.submap.max_submaps * 4,
-            max_priors=cfg.submap.max_submaps, device="cpu")
+            max_priors=cfg.submap.max_submaps, device="cpu",
+            cg_device=self.device)
         self.timer = profiling.StageTimer()
         self.scan_poses: list[np.ndarray] = []  # per-scan odometry pose6
+        self._gps_queue: list[tuple] = []  # (t, pos, cov) awaiting a submap
+        self._gps_dropped = 0  # fixes discarded without a matching keyframe
         self.keyframes: list[sm.Keyframe] = []
         self.kf_scan_ids: list[int] = []
+        # (timestamp, submap, rel_pose) per keyframe of a closed submap, in
+        # time order, for GPS matching, and its timestamps as an array
+        self._kf_time_index: list[tuple] = []
+        self._kf_times_np: np.ndarray | None = None
+        self._indexed_submaps = 0  # prefix of submaps in the index
         self._released_submaps = 0  # prefix of submaps w/ released clouds
         self.loops: list[tuple[int, int, np.ndarray, float]] = []  # kf i, j
         self._n_loop_factors = 0
@@ -357,18 +560,43 @@ class SemanticSlam:
     def process_scan(self, scan: odometry.ScanInput,
                      gt_labels: np.ndarray | None = None,
                      timestamp: float | None = None,
-                     **imu_window) -> torch.Tensor:
+                     imu_time: np.ndarray | None = None,
+                     imu_gyro: np.ndarray | None = None,
+                     imu_accel: np.ndarray | None = None,
+                     imu_rpy: np.ndarray | None = None) -> torch.Tensor:
         """Feed one scan (a ScanInput on the pipeline's device); returns its
         front-end pose6 on the device. `gt_labels` are per-raw-point
         learning-class ids; without them, RangeNet labels the keyframes
-        when the system holds a model. `timestamp` defaults to scan_idx *
-        scan_period."""
-        if imu_window:
-            raise NotImplementedError(
-                "IMU windows in SemanticSlam are not ported: "
-                f"{sorted(imu_window)}")
-        t = (timestamp if timestamp is not None
-             else self._scan_idx * self.cfg.sensor.scan_period)
+        when the system holds a model. `timestamp` (seconds, used for GPS
+        matching) defaults to imu_time[0] when an IMU window is given, else
+        scan_idx * scan_period.
+
+        With cfg.imu.use_imu, pass the scan's IMU window (`imu_time`,
+        `imu_gyro`, `imu_accel`: raw IMU frame, absolute seconds; optional
+        `imu_rpy`, the orientation at scan start): the LIO chain runs on
+        it, with the timestamp as the scan's start stamp on that clock."""
+        cfg = self.cfg
+        imu_supplied = (cfg.imu.use_imu and imu_time is not None
+                        and len(imu_time) > 0)
+        if timestamp is not None:
+            t = timestamp
+        elif imu_supplied:
+            # the preintegration window is clipped to [prev_scan_start,
+            # scan_start]: the scan's stamp must come from the IMU clock,
+            # or the clipped window collapses and the chain is inert
+            t = float(imu_time[0])
+        else:
+            t = self._scan_idx * cfg.sensor.scan_period
+        window = None
+        if imu_supplied:
+            window = ImuWindow(*driver.pad_imu_window(cfg, imu_time, imu_gyro,
+                                                      imu_accel), t)
+            if imu_rpy is not None:
+                rpy = pi.remap_imu_orientation(imu_rpy, cfg.imu)
+                scan = scan._replace(
+                    imu_rpy=torch.tensor(rpy, dtype=torch.float32,
+                                         device=self.device),
+                    imu_rpy_valid=True)
         if gt_labels is not None:
             buf = np.zeros(self.cfg.sensor.max_raw_points, np.int32)
             n = min(len(gt_labels), len(buf))
@@ -382,9 +610,11 @@ class SemanticSlam:
         if lab_mode != "none":
             self.collector.merge_classes = True
         with self.timer.stage("odom_step"):
-            self.fstate, out = slam_step(self.fstate, scan, lab_raw, self.cfg,
-                                         lab_mode, self.model, self._infer_cfg)
-        self._pending.append(_PendingScan(self._scan_idx, t, out))
+            self.fstate, out = slam_step(
+                self.fstate, scan, lab_raw, cfg, lab_mode, self.model,
+                self._infer_cfg, imu_window=window, timer=self.timer)
+        self._pending.append(_PendingScan(self._scan_idx, t, out,
+                                          imu_supplied))
         self._scan_idx += 1
         if len(self._pending) >= max(1, self.cfg.runtime.drain_every):
             with self.timer.stage("drain"):
@@ -478,13 +708,33 @@ class SemanticSlam:
             if res.fitness < self.cfg.loop.history_fitness_score:
                 self.loops.append((kf_i, cand_id, res.transform.numpy(),
                                    res.fitness))
+                if self.debug is not None:
+                    self.debug.add_loop_edge(
+                        kf_i, cand_id, self.keyframes[kf_i].pose_init[:3, 3],
+                        self.keyframes[cand_id].pose_init[:3, 3],
+                        res.fitness)
         for (kf_i, ids, res) in loop_pend:
             fetched = tuple(r.cpu().numpy() for r in res)
             cand = epsc.LoopDetector.result_to_candidate(ids, fetched)
             if cand is not None:
                 self._dispatch_verify(kf_i, cand)
+        imu_failed = False
         for row, p in zip(scalars if pend else [], pend):
             pose6, refined6 = row[:6], row[6:12]
+            imu_failed = imu_failed or p.out.imu_fail
+            # IMU windows supplied but the clipped window empty: the
+            # imu_time and scan clocks disagree and the chain is inert
+            if p.imu_supplied and p.out.imu_win_empty and p.idx > 0:
+                self._imu_inert_scans += 1
+                if self._imu_inert_scans == 3:
+                    warnings.warn(
+                        "IMU windows supplied but the preintegration "
+                        "window clipped empty on 3 consecutive scans: "
+                        "imu_time and the scan `timestamp` clocks likely "
+                        "disagree; LIO fusion is inert.",
+                        RuntimeWarning, stacklevel=2)
+            elif p.imu_supplied:
+                self._imu_inert_scans = 0
             if self.pose_hook is not None:
                 hooked = np.asarray(self.pose_hook(pose6, p.idx),
                                     dtype=pose6.dtype)
@@ -497,6 +747,12 @@ class SemanticSlam:
             if p.out.is_keyframe:
                 with self.timer.stage("keyframe"):
                     self._on_keyframe(p, pose6, refined6)
+        # the failure latch caught a divergence in this window: reset the
+        # nav state now, one drain window after the scan, as the JAX
+        # package does (scans stepped meanwhile carry the latch too)
+        if imu_failed and self.cfg.imu.use_imu:
+            self.fstate = _imu_reset(self.fstate, self.cfg)
+            self.n_imu_resets += 1
         self._factors_dirty = self._factors_dirty or any_factor
 
     # ------------------------------------------------------------------
@@ -518,6 +774,9 @@ class SemanticSlam:
             self.kf_scan_ids.append(p.idx)
         if cfg.loop.enabled:
             pose_xyyaw = np.array([refined6[3], refined6[4], refined6[2]])
+            if self.debug is not None:
+                self.debug.dump_descriptor(kf.index, cfg.loop.descriptor.value,
+                                           out.desc_sel.cpu().numpy())
             with self.timer.stage("loop_score"):
                 ids = self.loop_detector.gate(pose_xyyaw)
                 if len(ids):
@@ -623,6 +882,7 @@ class SemanticSlam:
         idx = self.graph.add_node(finished.pose_init)
         assert idx == finished.index
         self._pending_bbox.append((finished, finished.bbox_dev))
+        self._drain_gps()  # fixes whose interval this submap now covers
         if idx > 0:
             self._to_register.append((idx - 1, idx))
         n_keep = self.cfg.submap.release_after_submaps
@@ -660,13 +920,85 @@ class SemanticSlam:
         return added
 
     # ------------------------------------------------------------------
-    def add_gps(self, *args, **kwargs):
-        raise NotImplementedError("GPS factors (navsat) are not ported")
+    def add_gps(self, position_xyz: np.ndarray, cov_xyz: np.ndarray,
+                timestamp: float | None = None) -> bool:
+        """Ingest a GPS fix (addGPSFactor, subMapOptmizationNode.cpp:
+        4217-4301), gated on its horizontal covariance. With a `timestamp`
+        the fix waits for the submap whose keyframe it matches within 0.2
+        s (:4230-4243); without one it attaches to the latest submap.
+        Returns whether the fix was taken."""
+        if float(np.max(cov_xyz[:2])) > self.cfg.graph.gps_cov_threshold:
+            return False
+        if timestamp is not None:
+            self._gps_queue.append(
+                (float(timestamp), np.asarray(position_xyz, np.float64),
+                 np.asarray(cov_xyz, np.float64)))
+            self._drain_gps()
+            return True
+        if not self.collector.submaps:
+            return False
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = position_xyz
+        self.graph.add_gps_prior(self.collector.submaps[-1].index, T,
+                                 np.sqrt(np.maximum(cov_xyz, 1e-6)))
+        return True
 
-    def predict_imu_rate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "IMU fusion inside SemanticSlam is not ported; see "
-            "pipeline.lio.LioOdometry.predict_imu_rate")
+    def _drain_gps(self):
+        """Attach queued fixes to the submap of their nearest keyframe in
+        time (within 0.2 s), as a prior on the submap's base pose: the fix
+        minus the keyframe's offset within the submap. A fix after the last
+        closed submap's keyframes waits; one in a gap is counted in
+        `_gps_dropped`. The keyframe-time index grows at submap close."""
+        while self._indexed_submaps < len(self.collector.submaps):
+            s = self.collector.submaps[self._indexed_submaps]
+            for k, rel in zip(s.kf_indices, s.kf_rel_poses):
+                self._kf_time_index.append(
+                    (self.keyframes[k].timestamp, s, rel))
+            self._indexed_submaps += 1
+            self._kf_times_np = None
+        if not self._kf_time_index:
+            return
+        if self._kf_times_np is None:
+            self._kf_times_np = np.asarray([e[0] for e in
+                                            self._kf_time_index])
+        kt = self._kf_times_np
+        remaining = []
+        for (t, pos, cov) in self._gps_queue:
+            j = int(np.searchsorted(kt, t))
+            if j >= len(kt) or (j > 0 and t - kt[j - 1] < kt[j] - t):
+                j -= 1
+            if abs(kt[j] - t) > 0.2:
+                if t > kt[-1]:
+                    remaining.append((t, pos, cov))  # open/future submap
+                else:
+                    self._gps_dropped += 1
+                continue
+            _t, s, rel = self._kf_time_index[j]
+            T = np.eye(4, dtype=np.float32)
+            T[:3, 3] = pos - s.pose_init[:3, :3] @ rel[:3, 3]
+            self.graph.add_gps_prior(s.index, T,
+                                     np.sqrt(np.maximum(cov, 1e-6)))
+        self._gps_queue = remaining
+
+    def predict_imu_rate(self, imu_time: np.ndarray, imu_gyro: np.ndarray,
+                         imu_accel: np.ndarray) -> torch.Tensor:
+        """IMU-rate odometry (the back end's odometry/imu stream from
+        imuHandler, subMapOptmizationNode.cpp:429-511): the world pose6 at
+        every valid sample of the window (raw IMU frame), propagated from
+        the fused nav state of the latest stepped scan with its biases.
+        Returns (k, 6) float32 on the pipeline's device."""
+        if not (self.cfg.imu.use_imu and self.fstate.imu is not None):
+            raise ValueError("predict_imu_rate needs cfg.imu.use_imu")
+        cfg = self.cfg
+        it, ig, ia, iv = driver.pad_imu_window(cfg, imu_time, imu_gyro,
+                                               imu_accel)
+        ig_l, ia_l = pi.imu_to_lidar(torch.as_tensor(ig, **_HOST),
+                                     torch.as_tensor(ia, **_HOST), cfg.imu)
+        Rs, _vs, ps = pi.predict_path(torch.as_tensor(it, **_HOST), ig_l,
+                                      ia_l, torch.as_tensor(iv),
+                                      self.fstate.imu, cfg.imu)
+        poses = se3.matrix_to_pose(se3.make_transform(Rs, ps))[:int(iv.sum())]
+        return poses.to(self.device, torch.float32)
 
     def flush_pipeline(self):
         """Drain every deferred stage to a quiescent state; the factors that
@@ -724,6 +1056,11 @@ class SemanticSlam:
         global_map = None
         if build_map and self.collector.submaps:
             global_map = self.build_global_map()
+        if self.debug is not None:
+            self.debug.flush_loop_markers()
+            if global_map is not None:
+                self.debug.dump_cloud("global_map", global_map[:, :3],
+                                      global_map[:, 3].astype(np.int32))
         return SlamResult(
             poses=corrected, raw_poses=raw,
             keyframe_ids=np.asarray(self.kf_scan_ids),

@@ -1,8 +1,9 @@
 """The PyTorch port's copies of the JAX package's host-side modules.
 
 The port cannot import lis_slam_tpu (its package __init__ imports JAX, and
-the GPU machine has none), so config.py, labels.py, io/synthetic.py and
-utils/se3_np.py are copied into lis_slam_torch/, and so is the RangeNet
+the GPU machine has none), so config.py, labels.py, io/synthetic.py,
+utils/se3_np.py, pipeline/navsat.py, io/kitti.py and viz/debug.py are
+copied into lis_slam_torch/, and so is the RangeNet
 checkpoint weights/rangenet_synthetic_slim.npz (the port reads no file of
 the JAX package). These tests pin the copies to the originals.
 """
@@ -25,7 +26,8 @@ from lis_slam_torch import config as tcfg, labels as tlabels
 from lis_slam_torch.io import synthetic as tsyn
 
 _COPIES = ["config.py", "labels.py", "io/synthetic.py", "utils/se3_np.py",
-           "weights/rangenet_synthetic_slim.npz"]
+           "weights/rangenet_synthetic_slim.npz", "pipeline/navsat.py",
+           "io/kitti.py", "viz/debug.py"]
 CHECKPOINT_SHA256 = (
     "1306bde1bb466a8c6e25331ba48d3cf997552b9b7d19738813f4a1f11b0d3336")
 

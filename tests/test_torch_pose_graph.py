@@ -3,7 +3,9 @@ lis_slam_tpu/graph/pose_graph.py: the LM with the GNC-annealed Cauchy
 kernel on a 12-node loop with noisy odometry, one true loop edge, one
 false (robust) loop edge and a GPS prior; nodes within 1e-4 after the
 same builder calls (same bucket padding). Also the adjoint, the
-keyframe correction, and the unported CG solver raising."""
+keyframe correction, and the matrix-free CG solver (solver "cg", or
+"auto" past dense_max_nodes) against the JAX package's optimize_cg (1e-3)
+and the port's dense solve (5e-3)."""
 
 import dataclasses
 
@@ -101,11 +103,28 @@ def test_adjoint_and_correction_match():
         jpg.correct_keyframe_poses(Ts, kf_sub, sub_init, sub_opt))
 
 
+CG_JAX_ATOL = 1e-3
+CG_DENSE_ATOL = 5e-3
+
+
 @pytest.mark.parametrize("solver,max_nodes", [("cg", 64), ("auto", 512)])
 def test_cg_solver_not_ported(solver, max_nodes):
+    """The CG route (kept under its old name): the port's optimize_cg
+    against the JAX package's on the same graph, and against the port's
+    dense LM."""
     cfg = dataclasses.replace(GraphConfig(), solver=solver,
                               dense_max_nodes=8)
-    tb = tpg.GraphBuilder(cfg, max_nodes=max_nodes)
-    _build(tb)
-    with pytest.raises(NotImplementedError):
-        tb.optimize()
+    jcfg = dataclasses.replace(JGraphConfig(), solver=solver,
+                               dense_max_nodes=8)
+    tb = tpg.GraphBuilder(cfg, max_nodes=max_nodes, cg_device="cpu")
+    jb = jpg.GraphBuilder(jcfg, max_nodes=max_nodes)
+    db = tpg.GraphBuilder(GraphConfig(solver="dense"), max_nodes=max_nodes)
+    truth, est = _build(tb)
+    _build(jb)
+    _build(db)
+    nt = tb.optimize()
+    np.testing.assert_allclose(nt, jb.optimize(), atol=CG_JAX_ATOL)
+    np.testing.assert_allclose(nt, db.optimize(), atol=CG_DENSE_ATOL)
+    assert (np.linalg.norm(nt[-1][:3, 3] - truth[-1][:3, 3])
+            < np.linalg.norm(est[-1][:3, 3] - truth[-1][:3, 3]))
+    np.testing.assert_array_equal(np.stack(tb.nodes), nt)

@@ -13,8 +13,9 @@ labels and injected yaw drift.
 - The whole lap plus 20 scans past the closure (`slow`: on a shared 8-core CPU
   the JAX reference alone took 209-259 s and the port 252-398 s, run side
   by side): both detect >= 1 loop, submaps within +-1, ATE as above.
-- The paths the port does not run raise NotImplementedError; RangeNet
-  inference sets up as the JAX package's does.
+- The IMU, GPS, IMU-rate and debug entry points set up as the JAX
+  package's do (tests/test_torch_slam_imu.py and tests/test_torch_gps.py
+  run them); RangeNet inference sets up as the JAX package's does.
 """
 
 import dataclasses
@@ -208,29 +209,53 @@ def test_loop_closure_run_matches_jax():
     assert cor < trajectory.ate_rmse(tres.raw_poses, gt_rel, align=True)
 
 
-def test_unported_paths_raise():
-    """IMU, GPS, debug_dir and predict_imu_rate raise NotImplementedError.
-    RangeNet inference is ported: `rangenet_params` (with semantics on),
-    and cfg.semantic.enabled without them (the in-repo checkpoint and its
-    architecture), set up the same weights and inference config as the JAX
-    package's SemanticSlam; a scan without labels then runs lab_mode
-    "infer" on its keyframe."""
+def test_unported_paths_raise(tmp_path):
+    """The paths that once raised, now ported, set up as the JAX package's
+    do: with cfg.imu.use_imu the same fresh IMU state and the same IMU-rate
+    prediction from it (1e-4 m), a kwarg IMU window stepping one scan and
+    stamping its start, the same add_gps gate on an empty system, and
+    `debug_dir` creating its directory. RangeNet inference is ported:
+    `rangenet_params` (with semantics on), and cfg.semantic.enabled
+    without them (the in-repo checkpoint and its architecture), set up the
+    same weights and inference config as the JAX package's SemanticSlam;
+    a scan without labels then runs lab_mode "infer" on its keyframe."""
     jcfg, tcfg = cfgs()
-    with pytest.raises(NotImplementedError):
-        slam.SemanticSlam(tcfg.replace(imu=dataclasses.replace(
-            tcfg.imu, use_imu=True)), device="cpu")
-    with pytest.raises(NotImplementedError):
-        slam.SemanticSlam(tcfg, debug_dir="/nonexistent", device="cpu")
-    system = slam.SemanticSlam(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        system.add_gps(np.zeros(3), np.ones(3))
-    with pytest.raises(NotImplementedError):
-        system.predict_imu_rate(np.zeros(4), np.zeros((4, 3)),
-                                np.zeros((4, 3)))
+
+    def lio(c):
+        return c.replace(imu=dataclasses.replace(c.imu, use_imu=True))
+    tlio = slam.SemanticSlam(lio(tcfg), device="cpu")
+    jlio = jslam.SemanticSlam(lio(jcfg))
+    a, b = (convert.fused_state_to_numpy(x.fstate)["imu"]
+            for x in (tlio, jlio))
+    for key in ("imu", "prev_pre"):
+        for f, v in b[key].items():
+            np.testing.assert_allclose(a[key][f], v, atol=0, err_msg=f)
+    for f in ("imu_have_prev", "imu_fail", "prev_imu_valid",
+              "prev_scan_start"):
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+    r = np.random.default_rng(0)
+    it = np.arange(10, dtype=np.float32) * 0.01
+    ig = r.normal(0, 0.1, (10, 3)).astype(np.float32)
+    ia = (r.normal(0, 0.3, (10, 3)) + [0, 0, 9.8]).astype(np.float32)
+    np.testing.assert_allclose(tlio.predict_imu_rate(it, ig, ia).numpy(),
+                               np.asarray(jlio.predict_imu_rate(it, ig, ia)),
+                               atol=1e-4)
     scans, _gt = render_plaza(1)
+    pose = tlio.process_scan(
+        driver.pad_scan(scans[0].points[scans[0].valid], tcfg),
+        imu_time=it + 0.5, imu_gyro=ig, imu_accel=ia)
+    assert bool(torch.isfinite(pose).all())
+    assert tlio.fstate.prev_scan_start == float(np.float32(0.5))
+    assert tlio._pending[0].timestamp == float(np.float32(0.5))
+
+    system = slam.SemanticSlam(tcfg, device="cpu")
+    assert not system.add_gps(np.zeros(3), np.ones(3))
+    assert not jslam.SemanticSlam(jcfg).add_gps(np.zeros(3), np.ones(3))
+    with pytest.raises(ValueError):  # IMU-rate poses need the IMU state
+        system.predict_imu_rate(it, ig, ia)
+    slam.SemanticSlam(tcfg, debug_dir=str(tmp_path / "dbg"), device="cpu")
+    assert (tmp_path / "dbg").is_dir()
     sin = driver.pad_scan(scans[0].points[scans[0].valid], tcfg)
-    with pytest.raises(NotImplementedError):
-        system.process_scan(sin, imu_time=np.zeros(4))
     with pytest.raises(ValueError):  # "infer" needs a model
         slam.slam_step(system.fstate, sin, None, tcfg, "infer")
 
