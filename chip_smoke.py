@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch + CUDA port (lis_slam_torch) on one NVIDIA GPU.
 
 Drives the port's front-end odometry step, its LiDAR-inertial path, the
-batched multi-sequence replay and the full SLAM system, with the three
-hand-written CUDA kernels, through these phases (one or more lines each):
+batched multi-sequence replay, the full SLAM system, the KITTI-replay CLI,
+checkpoint/resume, NDT and RangeNet training, with the three hand-written
+CUDA kernels, through these phases (one or more lines each):
 
   1. device - torch and CUDA versions, the card's name and power limit;
   2. build  - nvcc builds csrc/knn.cu (K1, exact kNN), csrc/gn.cu (K2,
@@ -84,6 +85,28 @@ hand-written CUDA kernels, through these phases (one or more lines each):
               debug dump; (f) optimize_cg against the dense LM and its
               times on the host and the card at 512 and 1024 nodes; K1/K2
               at the path's shapes.
+ 13. cli    - the port's KITTI-replay CLI (python -m lis_slam_torch.run_kitti,
+              called in-process as run_kitti.main) on the plaza lap rendered
+              at the kitti preset's full HDL-64 width (64 x 1800, 150000-row
+              buffer) and written as KITTI sequence 00 (.bin, poses, calib,
+              times): native loader, pinned uploads, SemanticSlam with the
+              fused GN iteration (--gn-backend pallas), pred.txt and
+              map.pcd read back, corrected ATE held to the JAX package's
+              run (scripts/cli_accuracy_bars.py), scans/s and peak
+              memory; K1/K2 at the CLI's back-end shapes;
+ 14. checkpoint - the slam phase's run uninterrupted, and saved after
+              scan 70 (keyframe clouds already released), loaded into a
+              fresh SemanticSlam and continued: raw poses within 1e-4,
+              corrected within 5e-3, the same submaps and loop factors;
+              the file's size, save and load ms;
+ 15. ndt    - build_ndt + ndt_align between two plaza submaps on the card
+              against the same calls on the host (transform within 1e-4,
+              the same iterations and convergence), ms a call;
+ 16. train  - five RangeNet training steps (train/seg_train.py) at the
+              full darknet53 width, 64 x 2048 x 5 bf16, batch 2, on one
+              seeded batch: the loss falls; ms a step, peak memory; the
+              trained weights as SemanticSlam's rangenet_params label a
+              plaza scan.
 
 Every kernel case (K1 at each path's shapes, K2's one launch per GN
 iteration at the front end's, the LIO path's, the refinement's and the
@@ -115,6 +138,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1135,18 +1159,20 @@ def _graph_lm_ms(system, device, reps=3):
 
 def _check_slam_kernels(system, cfg, dev, path="slam"):
     """K1 and K2 at the back end's shapes, against their plain versions:
-    K1 at k=1 (dynamic removal) on the local map with holes and on an
-    empty map; K1 bit-equal against the submap-sized targets (geometric
-    surf N 131072, the semantic registration's 3 x 32768 = 98304) at Q
-    8192; K2 with weights in [0.5, 2] at the refinement's corner 4096 +
-    surf 8192. Returns the worst error of each kernel (K1 distance, K2
-    scaled)."""
+    K1 bit-equal against the submap-sized targets (geometric surf N
+    131072, with labels the semantic registration's 3 x 32768 = 98304) at
+    Q 8192; with labels K1 at k=1 (dynamic removal) on the local map with
+    holes and on an empty map, without them (no refinement, so no
+    dynamic removal) K1 at the front end's k and cap on its surf map; K2
+    at the registration's corner 4096 + surf 8192 (the refinement's too),
+    weights in [0.5, 2] with labels, unit without. Returns the worst
+    error of each kernel (K1 distance, K2 scaled)."""
     import torch
     from lis_slam_torch.ops import voxel
     from lis_slam_torch.utils import se3
 
     subs = system.collector.submaps
-    check(len(subs) >= 3, f"slam: {len(subs)} submaps")
+    check(len(subs) >= 3, f"{path}: {len(subs)} submaps")
     prev, cur = subs[1], subs[2]
     Ti = se3.transform_inverse(torch.as_tensor(
         cur.pose_init.astype(np.float32), device=dev))
@@ -1160,21 +1186,29 @@ def _check_slam_kernels(system, cfg, dev, path="slam"):
     gen.manual_seed(7)
     holes = sem.surf_mask & (torch.rand(sem.surf_mask.shape, generator=gen,
                                         device=dev) > 0.1)
-    t_sem = torch.cat([prev.class_xyz[c] for c in (0, 1, 2)]).contiguous()
-    t_sem_m = torch.cat([prev.class_mask[c] for c in (0, 1, 2)]).contiguous()
     # registration runs scan_to_map: its queries come morton-sorted
     qr = se3.transform_points(T, _sorted(q, _qm)).contiguous()
     k = cfg.matching.nn_cache_k
+    labels = prev.class_xyz is not None  # submaps with class clouds
     cases = [
-        (f"dynamic removal Q{qw.shape[0]} N{sem.surf_pts.shape[0]} k1 nocap "
-         "holes", qw, sem.surf_pts, holes, 1, None),
-        (f"dynamic removal Q{qw.shape[0]} empty map k1 nocap", qw,
-         sem.surf_pts, torch.zeros_like(holes), 1, None),
         (f"geo registration Q{qw.shape[0]} N{prev.surf_xyz.shape[0]} k{k} "
          "cap4", qr, prev.surf_xyz, prev.surf_mask, k, 4.0),
-        (f"sem registration Q{qw.shape[0]} N{t_sem.shape[0]} k{k} cap4", qr,
-         t_sem, t_sem_m, k, 4.0),
     ]
+    if labels:
+        t_sem = torch.cat([prev.class_xyz[c] for c in (0, 1, 2)])
+        t_sem_m = torch.cat([prev.class_mask[c] for c in (0, 1, 2)])
+        cases += [
+            (f"dynamic removal Q{qw.shape[0]} N{sem.surf_pts.shape[0]} k1 "
+             "nocap holes", qw, sem.surf_pts, holes, 1, None),
+            (f"dynamic removal Q{qw.shape[0]} empty map k1 nocap", qw,
+             sem.surf_pts, torch.zeros_like(holes), 1, None),
+            (f"sem registration Q{qw.shape[0]} N{t_sem.shape[0]} k{k} cap4",
+             qr, t_sem.contiguous(), t_sem_m.contiguous(), k, 4.0)]
+    else:
+        st = system.state
+        cases.append((f"front-end surf map Q{qw.shape[0]} "
+                      f"N{st.map_surf.shape[0]} k{k} cap4", qr, st.map_surf,
+                      st.map_surf_mask, k, 4.0))
     worst_k1 = max(_check_knn(f"{path} K1", name, qq, ref, mask, kk, cap,
                               path)
                    for name, qq, ref, mask, kk, cap in cases)
@@ -1183,12 +1217,14 @@ def _check_slam_kernels(system, cfg, dev, path="slam"):
     # (matched corner 4096, surf 8192), both clouds in one launch
     pose = torch.tensor(POSE_TRUE, device=dev) + torch.tensor(POSE_OFF,
                                                               device=dev)
+    w = (0.5, 2.0) if labels else (1.0, 1.0)
     corner = _gn_case("corner", 16384, cfg.submap.matched_corner_capacity,
-                      12, cfg, dev, 0.5, 2.0)
+                      12, cfg, dev, *w)
     surf = _gn_case("surf", 65536, cfg.submap.matched_surf_capacity, 11, cfg,
-                    dev, 0.5, 2.0)
-    worst_k2 = _check_gn_pair(f"{path} K2", "weighted refine shapes", path,
-                              corner, surf, cfg, pose)
+                    dev, *w)
+    worst_k2 = _check_gn_pair(
+        f"{path} K2", "weighted refine shapes" if labels
+        else "registration shapes", path, corner, surf, cfg, pose)
     return worst_k1, worst_k2
 
 
@@ -1244,19 +1280,26 @@ def _slam_syncs(cfg, seq, dev, hook=_slam_drift_hook, scan_kw=None):
     return dict(sorted(counts.items(), key=lambda kv: -kv[1])), system
 
 
+def _slam_cfg():
+    """The slam phase's configuration: default SlamConfig, the bench's
+    65536-row scan buffer, the fused GN iteration (K2)."""
+    import dataclasses
+
+    from lis_slam_torch.config import SensorConfig, SlamConfig
+
+    base = SlamConfig().replace(sensor=SensorConfig(max_raw_points=65536))
+    return base.replace(matching=dataclasses.replace(base.matching,
+                                                     gn_backend="pallas"))
+
+
 def phase_slam(dev, out_dir):
     """SemanticSlam at full width on the plaza lap with injected drift;
     accuracy against the JAX package's bar, then the kernels at the back
     end's shapes and the LM on the card vs the host."""
-    import dataclasses
-
     import torch
-    from lis_slam_torch.config import SensorConfig, SlamConfig
     from lis_slam_torch.pipeline import trajectory
 
-    base = SlamConfig().replace(sensor=SensorConfig(max_raw_points=65536))
-    cfg = base.replace(matching=dataclasses.replace(base.matching,
-                                                    gn_backend="pallas"))
+    cfg = _slam_cfg()
     t = time.perf_counter()
     seq, gt, _ = _render_plaza(cfg, dev)
     torch.cuda.synchronize()
@@ -1965,6 +2008,304 @@ def phase_lio_slam(seq, gt, dev, out_dir):
 
 
 # ---------------------------------------------------------------------------
+# cli, checkpoint, ndt, train: the KITTI-replay CLI, resume, NDT, training
+# ---------------------------------------------------------------------------
+
+# scripts/cli_accuracy_bars.py: the JAX package's SemanticSlam on the plaza
+# lap as the CLI sees it (numpy renderer, kitti preset, 150000-row buffer,
+# range gate, no labels, no drift; CPU, gn_backend "xla")
+JAX_CLI = {"ate_corrected_m": 0.021926960587686672,
+           "ate_raw_m": 0.01566679058953778, "n_submaps": 10,
+           "loop_factors": 0, "keyframes": 47}
+CKPT_AT = 70  # the checkpoint phase saves after this many scans
+CKPT_RAW_ATOL = 1e-4  # m / rad, tests/test_io_runtime.py:185-190
+CKPT_CORRECTED_ATOL = 5e-3
+NDT_ATOL = 1e-4  # card vs host transform
+TRAIN_STEPS = 5
+TRAIN_BATCH = 2
+TRAIN_LR = 3e-3  # tests/test_rangenet_train.py:67
+
+
+def phase_cli(card, dev, out_dir):
+    """The port's KITTI-replay CLI in-process (run_kitti.main) on the plaza
+    lap rendered at the kitti preset's full HDL-64 width (64 x 1800) and
+    written as a KITTI sequence; then K1/K2 at the CLI's back-end shapes.
+    Returns the path's K1/K2/K3 launches and the kernels' worst errors."""
+    import torch
+    from lis_slam_torch import run_kitti
+    from lis_slam_torch.config import PRESETS
+    from lis_slam_torch.io import kitti, synthetic, synthetic_torch
+    from lis_slam_torch.pipeline import trajectory
+    from lis_slam_torch.runtime import native
+
+    n = SLAM_LAP
+    world = synthetic_torch.to_device_world(synthetic_torch.plaza_world(),
+                                            dev)
+    gt = synthetic.circular_trajectory(
+        n + 1, radius=10.0, speed=2.0 * np.pi * 10.0 / (n * 0.1))
+    t = time.perf_counter()
+    clouds = []
+    for lap_seed, count in ((9, n), (11, SLAM_EXTRA)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(lap_seed)
+        for i in range(count):
+            p, _lab, v = synthetic_torch.render_scan_device(
+                world, torch.as_tensor(gt[i]), gen)
+            clouds.append(p[v].cpu().numpy())
+    gt_seq = np.concatenate([gt[:n], gt[:SLAM_EXTRA]])
+    root = os.path.join(ROOT, "smoke_out", "kitti")  # ~250 MB, removed below
+    shutil.rmtree(root, ignore_errors=True)
+    run_kitti.write_sequence(root, "00", clouds, gt_seq)
+    log("cli", f"rendered {len(clouds)} plaza scans (64 x 1800) on the card "
+        f"and wrote them as KITTI sequence 00 in "
+        f"{time.perf_counter() - t:.2f} s; points/scan "
+        f"{int(np.mean([len(c) for c in clouds]))}")
+    pred = os.path.join(out_dir, "cli_pred.txt")
+    pcd = os.path.join(out_dir, "cli_map.pcd")
+    check(native.available(), "cli: the native loader did not build")
+
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    system, res, timer = run_kitti.main([
+        "--root", root, "--sequence", "00", "--out", pred, "--save-map", pcd,
+        "--gn-backend", "pallas"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts, peak = _launches(), torch.cuda.max_memory_allocated()
+    cfg = system.cfg
+    check(cfg.sensor.max_raw_points == PRESETS["kitti"]().sensor.max_raw_points
+          == 150_000 and system.device.type == "cuda",
+          "cli: not the kitti preset on the card")
+    poses = np.loadtxt(pred)
+    cloud = kitti.read_pcd(pcd)
+    gt_rel = run_kitti.ground_truth6(root, "00", len(res.poses))
+    shutil.rmtree(root)
+    ate = trajectory.ate_rmse(res.poses, gt_rel, align=True)
+    raw = trajectory.ate_rmse(res.raw_poses, gt_rel, align=True)
+    bar = 1.5 * JAX_CLI["ate_corrected_m"] + 0.02
+    scan = timer.stats["scan"]
+    sps = scan.count / scan.total_s
+    log("cli", f"run_kitti.main: {len(poses)} poses written, map.pcd "
+        f"{cloud.shape}; {sps:.3f} scans/s over the scan loop (native "
+        f"loader, pad_scan, pinned copy, process_scan), {len(clouds) / wall:.3f}"
+        f" scans/s with set-up, finish and the map; ATE aligned corrected "
+        f"{ate:.4f} m, raw {raw:.4f} m (JAX CPU corrected "
+        f"{JAX_CLI['ate_corrected_m']:.4f}, limit {bar:.4f}); submaps "
+        f"{res.n_submaps}, loop factors {res.n_loops}, keyframes "
+        f"{len(system.keyframes)} (JAX {JAX_CLI['n_submaps']}, "
+        f"{JAX_CLI['loop_factors']}, {JAX_CLI['keyframes']}); K1 launches "
+        f"{counts[0]}, K2 launches {counts[1]}; peak device memory {peak} "
+        f"bytes; on {card}")
+    with open(os.path.join(out_dir, "cli.json"), "w") as f:
+        json.dump({"ate_corrected_m": ate, "ate_raw_m": raw, "jax": JAX_CLI,
+                   "scans_per_s_loop": sps, "scans_per_s_wall":
+                   len(clouds) / wall, "n_submaps": res.n_submaps,
+                   "loop_factors": res.n_loops,
+                   "keyframes": len(system.keyframes), "peak_bytes": peak,
+                   "launches": list(counts), "map_points": len(cloud)}, f)
+    check(poses.shape == (len(clouds), 12), f"cli: pred.txt {poses.shape}")
+    check(res.global_map is not None
+          and cloud.shape == (len(res.global_map), 4),
+          f"cli: map.pcd {cloud.shape}")
+    check(ate <= bar, f"cli: corrected ATE {ate} > {bar}")
+    check(counts[0] > 0 and counts[1] > 0, f"cli: launches {counts}")
+    err = _check_slam_kernels(system, cfg, dev, path="cli")
+    return {"cli": counts}, err
+
+
+def phase_checkpoint(seq, gt, dev, out_dir):
+    """Resume across released keyframes: the slam phase's run (gt labels,
+    drift hook) uninterrupted, and saved after CKPT_AT scans
+    (runtime/checkpoint.save_slam), loaded into a fresh SemanticSlam and
+    continued. Returns the uninterrupted system (its submaps feed the ndt
+    phase)."""
+    import torch
+    from lis_slam_torch.pipeline import slam
+    from lis_slam_torch.runtime import checkpoint
+
+    cfg = _slam_cfg()
+    full, r_full, *_ = _slam_run(cfg, seq, dev, "checkpoint")
+
+    def feed(system, lo, hi):
+        for i in range(lo, hi):
+            system.process_scan(seq[i][0], gt_labels=seq[i][1],
+                                timestamp=i * 0.1)
+
+    first = slam.SemanticSlam(cfg, pose_hook=_slam_drift_hook, device=dev)
+    feed(first, 0, CKPT_AT)
+    path = os.path.join(out_dir, "slam_ckpt.npz")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    checkpoint.save_slam(path, first)
+    save_ms = (time.perf_counter() - t) * 1e3
+    released = sum(kf.released for kf in first.keyframes)
+    n_kf = len(first.keyframes)
+    del first
+    resumed = slam.SemanticSlam(cfg, pose_hook=_slam_drift_hook, device=dev)
+    t = time.perf_counter()
+    checkpoint.load_slam(path, resumed)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t) * 1e3
+    on_card = all(kf.surf_xyz.device.type == "cuda"
+                  for kf in resumed.keyframes if not kf.released)
+    still = sum(kf.released for kf in resumed.keyframes)
+    feed(resumed, CKPT_AT, len(seq))
+    r_res = resumed.finish()
+    d_raw = float(np.abs(r_res.raw_poses - r_full.raw_poses).max())
+    d_cor = float(np.abs(r_res.poses - r_full.poses).max())
+    size = os.path.getsize(path)
+    os.remove(path)
+    log("checkpoint", f"saved after scan {CKPT_AT}: {size} bytes, save "
+        f"{save_ms:.1f} ms (flush_pipeline included), load {load_ms:.1f} ms; "
+        f"{released} of {n_kf} keyframes released at the save, {still} "
+        f"released after the load; resumed vs uninterrupted over "
+        f"{len(seq)} scans: raw poses max |diff| {d_raw:.3g} (limit "
+        f"{CKPT_RAW_ATOL}), corrected {d_cor:.3g} (limit "
+        f"{CKPT_CORRECTED_ATOL}); submaps {r_res.n_submaps} vs "
+        f"{r_full.n_submaps}, loop factors {r_res.n_loops} vs "
+        f"{r_full.n_loops}")
+    with open(os.path.join(out_dir, "checkpoint.json"), "w") as f:
+        json.dump({"bytes": size, "save_ms": save_ms, "load_ms": load_ms,
+                   "released_at_save": released, "keyframes_at_save": n_kf,
+                   "raw_max_diff": d_raw, "corrected_max_diff": d_cor,
+                   "n_submaps": [r_res.n_submaps, r_full.n_submaps],
+                   "loop_factors": [r_res.n_loops, r_full.n_loops]}, f)
+    check(released > 0 and still == released,
+          f"checkpoint: released keyframes {released} at the save, {still} "
+          "after the load")
+    check(on_card, "checkpoint: restored clouds are not on the card")
+    check(d_raw <= CKPT_RAW_ATOL, f"checkpoint: raw poses differ by {d_raw}")
+    check(d_cor <= CKPT_CORRECTED_ATOL,
+          f"checkpoint: corrected poses differ by {d_cor}")
+    check(r_res.n_submaps == r_full.n_submaps
+          and r_res.n_loops == r_full.n_loops,
+          "checkpoint: submaps or loop factors differ")
+    return full
+
+
+def phase_ndt(system, dev, out_dir):
+    """NDT (ops/icp.build_ndt + ndt_align) between two plaza submaps: the
+    third submap's surf cloud in its own frame onto the second's, seeded
+    with the odometry pose; on the card against the same calls on the
+    host."""
+    import torch
+    from lis_slam_torch.ops import icp
+    from lis_slam_torch.utils import se3
+
+    prev, cur = system.collector.submaps[1], system.collector.submaps[2]
+    T0 = torch.as_tensor(cur.pose_init.astype(np.float32))
+    src = se3.transform_points(se3.transform_inverse(T0).to(dev),
+                               cur.surf_xyz).contiguous()
+    runs = {}
+    for name, d in (("card", dev), ("host", torch.device("cpu"))):
+        args = (prev.surf_xyz.to(d), prev.surf_mask.to(d))
+        grid = icp.build_ndt(*args)
+        res = icp.ndt_align(src.to(d), cur.surf_mask.to(d), grid, T0)
+        sync = torch.cuda.synchronize if d.type == "cuda" else (lambda: None)
+        t = time.perf_counter()
+        for _ in range(3):
+            icp.build_ndt(*args)
+        sync()
+        build_ms = (time.perf_counter() - t) / 3 * 1e3
+        t = time.perf_counter()
+        for _ in range(3):
+            icp.ndt_align(src.to(d), cur.surf_mask.to(d), grid, T0)
+        align_ms = (time.perf_counter() - t) / 3 * 1e3
+        runs[name] = (grid, res, build_ms, align_ms)
+    (gc, rc, bc, ac), (gh, rh, bh, ah) = runs["card"], runs["host"]
+    d_T = float(torch.max(torch.abs(rc.transform - rh.transform)))
+    d_info = float(torch.max(torch.abs(gc.info.cpu() - gh.info)))
+    same_grid = bool(torch.equal(gc.mask.cpu(), gh.mask)
+                     and torch.equal(gc.mean.cpu(), gh.mean))
+    moved = float(torch.linalg.vector_norm(rc.transform[:3, 3] - T0[:3, 3]))
+    log("ndt", f"submap {cur.index} ({int(cur.surf_mask.sum())} surf points) "
+        f"onto submap {prev.index} ({int(prev.surf_mask.sum())}; "
+        f"{int(gc.mask.sum())} voxel Gaussians): card {rc.iterations} "
+        f"iterations, converged {rc.converged}, {rc.n_inliers} inliers, "
+        f"fitness {rc.fitness:.5f}; host {rh.iterations}, {rh.converged}, "
+        f"{rh.n_inliers}; transform max |card - host| {d_T:.3g} (limit "
+        f"{NDT_ATOL}), grids equal {same_grid}, info max |diff| "
+        f"{d_info:.3g}; moved {moved:.4f} m from the odometry seed; "
+        f"build_ndt {bc:.3f} ms card / {bh:.3f} ms host, ndt_align "
+        f"{ac:.3f} / {ah:.3f} ms (host clock, a call)")
+    with open(os.path.join(out_dir, "ndt.json"), "w") as f:
+        json.dump({"iterations": [rc.iterations, rh.iterations],
+                   "converged": [rc.converged, rh.converged],
+                   "transform_max_diff": d_T, "info_max_diff": d_info,
+                   "build_ms": [bc, bh], "align_ms": [ac, ah]}, f)
+    check(d_T <= NDT_ATOL, f"ndt: card vs host transform {d_T}")
+    check(rc.iterations == rh.iterations and rc.converged == rh.converged,
+          "ndt: iterations or convergence differ")
+    check(rc.n_inliers > 1000, f"ndt: {rc.n_inliers} inliers")
+
+
+def phase_train(dev, out_dir):
+    """TRAIN_STEPS RangeNet training steps (train/seg_train.py) at the
+    full darknet53 width, 64 x 2048 x 5, bf16, batch TRAIN_BATCH, on one
+    seeded batch; then the trained weights as SemanticSlam's
+    rangenet_params, labelling a plaza scan."""
+    import torch
+    from lis_slam_torch.config import SemanticConfig, SensorConfig, SlamConfig
+    from lis_slam_torch.pipeline import slam
+    from lis_slam_torch.semantic import inference
+    from lis_slam_torch.train import seg_train
+
+    full = SemanticConfig(enabled=True)
+    check(full.fp16, "train: the default SemanticConfig is not bf16")
+    model, opt = seg_train.create_train_state(
+        full, torch.Generator().manual_seed(0), lr=TRAIN_LR, device=dev)
+    step = seg_train.make_train_step(model, opt)
+    r = np.random.default_rng(0)
+    shape = (TRAIN_BATCH, full.model_input_h, full.model_input_w)
+    images = torch.as_tensor(r.normal(size=shape + (full.model_input_c,)),
+                             dtype=torch.float32, device=dev)
+    labels = torch.as_tensor(r.integers(0, full.num_classes, shape),
+                             dtype=torch.int32, device=dev)
+    mask = torch.ones(shape, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(images, labels, mask)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    tree = seg_train.to_variables(model, full)
+    del model, opt, step
+    cfg = SlamConfig().replace(sensor=SensorConfig(max_raw_points=64 * 1800),
+                               semantic=full)
+    system = slam.SemanticSlam(cfg, rangenet_params=tree, device=dev)
+    pts, lab_gt, valid = _plaza_scan(dev, 1800, 19)
+    with torch.no_grad():
+        lab, _sem = inference.infer_scan_labels(system.model, pts, valid,
+                                                system._infer_cfg)
+    n_lab = int((valid & (lab > 0)).sum())
+    log("train", f"darknet53 {TRAIN_BATCH} x {full.model_input_h} x "
+        f"{full.model_input_w} x {full.model_input_c} bf16, Adam lr "
+        f"{TRAIN_LR}: losses {', '.join(f'{x:.4f}' for x in losses)}; grad "
+        f"norms {', '.join(f'{x:.3f}' for x in norms)}; ms a step (CUDA "
+        f"events) {', '.join(f'{x:.2f}' for x in ms)}; peak device memory "
+        f"{peak} bytes; the trained weights in SemanticSlam labelled "
+        f"{n_lab} of {int(valid.sum())} points of a plaza scan")
+    with open(os.path.join(out_dir, "train.json"), "w") as f:
+        json.dump({"losses": losses, "grad_norms": norms, "step_ms": ms,
+                   "peak_bytes": peak, "labelled_points": n_lab}, f)
+    check(bool(np.isfinite(losses).all() and np.isfinite(norms).all()),
+          f"train: loss or grad norm not finite ({losses}, {norms})")
+    check(losses[-1] < losses[0], f"train: loss did not fall ({losses})")
+    check(lab.shape == valid.shape and int(lab.min()) >= 0
+          and int(lab.max()) < full.num_classes and n_lab > 0,
+          "train: the trained weights labelled no point")
+
+
+# ---------------------------------------------------------------------------
 # batched: multi-sequence replay through the uniform step (K1 + K2 + K3)
 # ---------------------------------------------------------------------------
 
@@ -2525,7 +2866,18 @@ def main() -> int:
         lio_launches, (k1_lio, k2_lio) = phase_lio_slam(*plaza, dev, args.out)
         launches.update(lio_launches)
         k1, k2 = max(k1, k1_lio), max(k2, k2_lio)
+        phase = "cli"
+        cli_launches, (k1_cli, k2_cli) = phase_cli(card, dev, args.out)
+        launches.update(cli_launches)
+        k1, k2 = max(k1, k1_cli), max(k2, k2_cli)
+        phase = "checkpoint"
+        resumed_from = phase_checkpoint(*plaza, dev, args.out)
         del plaza
+        phase = "ndt"
+        phase_ndt(resumed_from, dev, args.out)
+        del resumed_from
+        phase = "train"
+        phase_train(dev, args.out)
         with open(os.path.join(args.out, "kernel_cases.json"), "w") as f:
             json.dump({"card": card, "cases": CASES}, f, indent=1)
     except BaseException as e:  # any failure: report and exit nonzero

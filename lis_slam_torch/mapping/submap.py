@@ -94,6 +94,15 @@ class SubMap:
         self.bbox = b if np.all(np.isfinite(b)) else None
         self.bbox_dev = None
 
+    def recompute_bbox(self) -> np.ndarray | None:
+        """The host bbox from the surf cloud now (a restored submap);
+        unchanged when the cloud is empty."""
+        self.bbox_dev = None
+        pts = self.surf_xyz.cpu().numpy()[self.surf_mask.cpu().numpy()]
+        if len(pts):
+            self.bbox = np.stack([pts.min(0), pts.max(0)])
+        return self.bbox
+
 
 def masked_bbox(pts: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(2, 3) min/max of the masked points; +-inf rows when empty."""

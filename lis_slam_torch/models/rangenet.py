@@ -28,6 +28,15 @@ lists them in graph order.
 
 The convolutions are cuDNN calls (F.conv2d / F.conv_transpose2d): the JAX
 package leaves them to XLA, with no Pallas kernel on this path.
+
+Training (train/seg_train.py) runs the module in train mode with
+`param_dtype` float32: the parameters stay float32 and each convolution
+casts its kernel to the compute dtype, as flax does. BatchNorm in train
+mode is flax's: it normalizes with the batch mean and the biased batch
+variance E[x^2] - E[x]^2 (clipped at 0) over (N, H, W), and moves the
+running statistics by flax's momentum 0.99 (torch's 0.01) toward the
+batch mean and that same biased variance. nn.BatchNorm2d's own update
+takes the unbiased variance, so the update is done here by hand.
 """
 
 from __future__ import annotations
@@ -52,39 +61,65 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
 
 
 def _conv_same(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """`conv` with "SAME" padding; asymmetric pads (the strided convs) go
-    through F.pad, symmetric ones into the convolution."""
+    """`conv` with "SAME" padding, its kernel cast to x's dtype; asymmetric
+    pads (the strided convs) go through F.pad, symmetric ones into the
+    convolution."""
     (hl, hh), (wl, wh) = (_same_pads(x.shape[2 + i], conv.kernel_size[i],
                                      conv.stride[i]) for i in range(2))
+    w = conv.weight.to(x.dtype)
     if hl == hh and wl == wh:
-        return F.conv2d(x, conv.weight, conv.bias, conv.stride, (hl, wl))
-    return F.conv2d(F.pad(x, (wl, wh, hl, hh)), conv.weight, conv.bias,
-                    conv.stride)
+        return F.conv2d(x, w, conv.bias, conv.stride, (hl, wl))
+    return F.conv2d(F.pad(x, (wl, wh, hl, hh)), w, conv.bias, conv.stride)
+
+
+def _batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm of float32 NCHW `x`: eval mode with the running
+    statistics; train mode as flax's (see the module docstring)."""
+    if not bn.training:
+        return bn(x)
+    mean = x.mean(dim=(0, 2, 3))
+    var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None,
+                                                                   None]
+
+
+def _bn2d(features: int) -> nn.BatchNorm2d:
+    # flax BatchNorm(momentum=0.99, epsilon=1e-4)
+    return nn.BatchNorm2d(features, eps=1e-4, momentum=0.01)
 
 
 class ConvBnLeaky(nn.Module):
     """Conv (no bias, compute dtype) -> BatchNorm -> leaky ReLU 0.1, the
-    last two in float32."""
+    last two in float32. The kernel is held in `param_dtype` (default the
+    compute dtype)."""
 
     def __init__(self, in_features: int, features: int, kernel=(3, 3),
-                 strides=(1, 1), dtype: torch.dtype = torch.bfloat16):
+                 strides=(1, 1), dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
         self.Conv_0 = nn.Conv2d(in_features, features, kernel, stride=strides,
-                                bias=False, dtype=dtype)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-4)
+                                bias=False, dtype=param_dtype or dtype)
+        self.BatchNorm_0 = _bn2d(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _conv_same(self.Conv_0, x.to(self.dtype))
-        return F.leaky_relu(self.BatchNorm_0(x.float()), 0.1)
+        return F.leaky_relu(_batch_norm(self.BatchNorm_0, x.float()), 0.1)
 
 
 class ResidualBlock(nn.Module):
-    def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.ConvBnLeaky_0 = ConvBnLeaky(features, features // 2, (1, 1),
-                                         dtype=dtype)
-        self.ConvBnLeaky_1 = ConvBnLeaky(features // 2, features, dtype=dtype)
+                                         dtype=dtype, param_dtype=param_dtype)
+        self.ConvBnLeaky_1 = ConvBnLeaky(features // 2, features, dtype=dtype,
+                                         param_dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.ConvBnLeaky_1(self.ConvBnLeaky_0(x))
@@ -96,20 +131,22 @@ class Darknet53Encoder(nn.Module):
 
     def __init__(self, in_features: int, blocks=(1, 2, 8, 8, 4),
                  widths=(64, 128, 256, 512, 1024),
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
+        pd = dict(dtype=dtype, param_dtype=param_dtype)
         # registered in graph order, under flax's names
-        self.ConvBnLeaky_0 = ConvBnLeaky(in_features, _STEM, dtype=dtype)
+        self.ConvBnLeaky_0 = ConvBnLeaky(in_features, _STEM, **pd)
         self.stages: list[tuple[str, list[str]]] = []
         prev, rb = _STEM, 0
         for i, (n_blocks, width) in enumerate(zip(blocks, widths)):
             down = f"ConvBnLeaky_{i + 1}"
             self.add_module(down, ConvBnLeaky(prev, width, strides=(1, 2),
-                                              dtype=dtype))
+                                              **pd))
             res = []
             for _ in range(n_blocks):
                 res.append(f"ResidualBlock_{rb}")
-                self.add_module(res[-1], ResidualBlock(width, dtype=dtype))
+                self.add_module(res[-1], ResidualBlock(width, **pd))
                 rb += 1
             self.stages.append((down, res))
             prev = width
@@ -131,26 +168,32 @@ class UpBlock(nn.Module):
     when its width differs)."""
 
     def __init__(self, in_features: int, skip_features: int, features: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
+        pdt = param_dtype or dtype
         # flax "SAME" for kernel 4, stride 2: output width 2 W, which is
         # torch's padding 1 (the kernel flipped, see weights.to_torch_state)
         self.ConvTranspose_0 = nn.ConvTranspose2d(
             in_features, features, (1, 4), stride=(1, 2), padding=(0, 1),
-            bias=False, dtype=dtype)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-4)
-        self.ConvBnLeaky_0 = ConvBnLeaky(features, features, dtype=dtype)
+            bias=False, dtype=pdt)
+        self.BatchNorm_0 = _bn2d(features)
+        self.ConvBnLeaky_0 = ConvBnLeaky(features, features, dtype=dtype,
+                                         param_dtype=param_dtype)
         if skip_features != features:
             self.Conv_0 = nn.Conv2d(skip_features, features, 1, bias=False,
-                                    dtype=dtype)
+                                    dtype=pdt)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        x = self.ConvTranspose_0(x.to(self.dtype))
-        x = F.leaky_relu(self.BatchNorm_0(x.float()), 0.1)
+        t = self.ConvTranspose_0
+        x = F.conv_transpose2d(x.to(self.dtype), t.weight.to(self.dtype),
+                               None, t.stride, t.padding)
+        x = F.leaky_relu(_batch_norm(self.BatchNorm_0, x.float()), 0.1)
         x = self.ConvBnLeaky_0(x)
         if hasattr(self, "Conv_0"):
-            skip = self.Conv_0(skip.to(self.dtype))
+            skip = F.conv2d(skip.to(self.dtype),
+                            self.Conv_0.weight.to(self.dtype))
         return x + skip
 
 
@@ -162,16 +205,19 @@ class RangeNet(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  enc_blocks=(1, 2, 8, 8, 4),
                  enc_widths=(64, 128, 256, 512, 1024),
-                 dec_widths=(512, 256, 128, 64, 32)):
+                 dec_widths=(512, 256, 128, 64, 32),
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
         self.Darknet53Encoder_0 = Darknet53Encoder(
-            in_features, tuple(enc_blocks), tuple(enc_widths), dtype)
+            in_features, tuple(enc_blocks), tuple(enc_widths), dtype,
+            param_dtype)
         skip_ch = [_STEM] + list(enc_widths[:-1])
         prev = enc_widths[-1]
         for i, feats in enumerate(dec_widths):
             self.add_module(f"UpBlock_{i}", UpBlock(
-                prev, skip_ch[len(skip_ch) - 1 - i], feats, dtype))
+                prev, skip_ch[len(skip_ch) - 1 - i], feats, dtype,
+                param_dtype))
             prev = feats
         self.Conv_0 = nn.Conv2d(prev, num_classes, 1, bias=True)
 
@@ -240,15 +286,18 @@ def expected_layer_sequence(cfg: SemanticConfig):
     return seq
 
 
-def create_model(cfg: SemanticConfig) -> RangeNet:
+def create_model(cfg: SemanticConfig,
+                 param_dtype: torch.dtype | None = None) -> RangeNet:
     """The architecture of `cfg` in eval mode (NCHW inside) on the default
-    device; load weights with
+    device, parameters in the compute dtype unless `param_dtype` (float32
+    for training); load weights with
     `model.load_state_dict(weights.to_torch_state(variables, cfg))`."""
     return RangeNet(num_classes=cfg.num_classes,
                     in_features=cfg.model_input_c,
                     dtype=torch.bfloat16 if cfg.fp16 else torch.float32,
                     enc_blocks=cfg.enc_blocks, enc_widths=cfg.enc_widths,
-                    dec_widths=cfg.dec_widths).eval()
+                    dec_widths=cfg.dec_widths,
+                    param_dtype=param_dtype).eval()
 
 
 def init_params(cfg: SemanticConfig, generator: torch.Generator) -> dict:

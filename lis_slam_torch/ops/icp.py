@@ -1,6 +1,7 @@
-"""Gauss-Newton ICP on SE(3) and the fitness score (port of
-lis_slam_tpu/ops/icp.py `icp` and `fitness_score`; reference
-registration.cpp OptimizedICPGN::Match :19-86, GetFitnessScore :90-115).
+"""Gauss-Newton ICP on SE(3), NDT, the fitness score and the method
+factory (port of lis_slam_tpu/ops/icp.py; reference registration.cpp
+OptimizedICPGN::Match :19-86, GetFitnessScore :90-115,
+select_registration_method :124-188).
 
 The JAX `lax.while_loop` becomes a host loop: the correspondences and the
 6x6 normal equations are built on the clouds' device, and each iteration
@@ -8,20 +9,20 @@ brings (H, g, inlier count, squared-residual sum) back in ONE device->host
 copy; the solve, the SE(3) update and the exit test run on the host in
 float32, as the JAX program does them on the device. The exit semantics
 are the JAX ones, including `done` deferred to the last refresh iteration
-and the zeroed neighbor cache of a `refresh_iters` that lacks 0.
-
-NDT and `select_registration_method` are not ported: no path of the port
-runs them.
+and the zeroed neighbor cache of a `refresh_iters` that lacks 0. NDT runs
+the same way: its voxel Gaussians are built on the cloud's device, and
+each Gauss-Newton iteration reads back (H, g, inliers, fitness) once.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from ..utils import lin, se3
-from . import knn
+from . import knn, voxel
 
 
 class ICPResult(NamedTuple):
@@ -109,3 +110,108 @@ def fitness_score(src: torch.Tensor, src_mask: torch.Tensor,
     ok = src_mask & (d[:, 0] < max_range ** 2)
     return torch.sum(torch.where(ok, d[:, 0], torch.zeros_like(d[:, 0]))) / (
         torch.clamp(torch.sum(ok.to(torch.int32)), min=1))
+
+
+# ---------------------------------------------------------------------------
+# NDT (voxelized Gaussians)
+# ---------------------------------------------------------------------------
+
+
+class NDTGrid(NamedTuple):
+    mean: torch.Tensor  # (V, 3)
+    info: torch.Tensor  # (V, 3, 3) inverse covariance (regularized)
+    mask: torch.Tensor  # (V,) voxels with >= 5 points
+    hash: knn.VoxelHashMap  # NN over the voxel means
+
+
+def build_ndt(points: torch.Tensor, mask: torch.Tensor,
+              resolution: float = 1.0, capacity: int = 16384) -> NDTGrid:
+    """Voxel Gaussian statistics (pclomp::NormalDistributionsTransform's
+    target grid): the masked points sorted by voxel key (stable, as
+    jnp.argsort), one segment per voxel up to `capacity`, each voxel's
+    mean and regularized inverse covariance from its first and second
+    moments. E[x x^T] - mu mu^T cancels in float32, as in the JAX version,
+    so the moments are summed in one fixed order on the host and the card
+    (the card's scatter-add would sum in any order)."""
+    sentinel = torch.full_like(mask, voxel._SENTINEL, dtype=torch.int64)
+    key = torch.where(mask, voxel._voxel_key(points, mask, resolution),
+                      sentinel)
+    ks, order = torch.sort(key, stable=True)
+    ps = points[order]
+    valid = ks != voxel._SENTINEL
+    is_new = torch.cat([torch.ones(1, dtype=torch.bool, device=ks.device),
+                        ks[1:] != ks[:-1]]) & valid
+    seg = torch.cumsum(is_new.to(torch.int64), 0) - 1
+    ok = valid & (seg < capacity) & (seg >= 0)
+    dest = torch.where(ok, seg, torch.full_like(seg, capacity))
+    z = dict(dtype=points.dtype, device=points.device)
+    # counts are exact in float32 in any order; the moments are summed
+    # segment by segment in sorted order (rows past `capacity` and the
+    # padding, last in the sort, form one more segment)
+    cnt = torch.zeros(capacity + 1, **z).index_add_(
+        0, dest, torch.ones_like(ps[:, 0]))
+    lengths = cnt.to(torch.int64)
+    s1 = torch.segment_reduce(ps, "sum", lengths=lengths)
+    s2 = torch.segment_reduce(ps[:, :, None] * ps[:, None, :], "sum",
+                              lengths=lengths)
+    c = torch.clamp(cnt[:capacity], min=1.0)
+    mean = s1[:capacity] / c[:, None]
+    cov = s2[:capacity] / c[:, None, None] - mean[:, :, None] * mean[:, None]
+    info = lin.inv3(cov + 1e-3 * torch.eye(3, **z))
+    vmask = cnt[:capacity] >= 5  # enough support for a Gaussian
+    h = knn.build_hash(mean, vmask, cell_size=resolution * 2.0,
+                       table_size=1 << 14)
+    return NDTGrid(mean=mean, info=info, mask=vmask, hash=h)
+
+
+def ndt_align(src: torch.Tensor, src_mask: torch.Tensor, grid: NDTGrid,
+              init_T: torch.Tensor, max_iterations: int = 30,
+              trans_eps: float = 1e-4) -> ICPResult:
+    """Gauss-Newton NDT: minimize sum_i (p_i - mu)^T Info (p_i - mu) over
+    each source point's nearest voxel Gaussian (within 3 m). Host syncs:
+    one per iteration."""
+    dev = src.device
+    T = init_T.detach().to("cpu", torch.float32)
+    it, done, fit, n_in = 0, False, 1e9, 0
+    eye3 = torch.eye(3, device=dev)
+    eye6 = torch.eye(6)
+    while it < max_iterations and not done:
+        moved = se3.transform_points(T.to(dev), src)
+        d, idx = knn.knn_hash(moved, grid.hash, k=1)
+        vi = idx[:, 0]
+        info = grid.info[vi]
+        ok = src_mask & grid.mask[vi] & (d[:, 0] < 9.0)
+        w = ok.to(torch.float32)
+        e = moved - grid.mean[vi]
+        # J_point = [I, -hat(p)]: translation, then rotation
+        J = torch.cat([eye3.expand(e.shape[0], 3, 3), -se3.hat(moved)], 2)
+        H = torch.einsum("nji,njk,nkl->il", J, info, J * w[:, None, None])
+        g = -torch.einsum("nji,njk,nk->i", J, info, e * w[:, None])
+        f = torch.einsum("ni,nij,nj->", e * w[:, None], info, e)
+        stats = torch.cat([H.reshape(-1), g, f.reshape(1),
+                           torch.sum(ok.to(torch.int32)).reshape(1).to(H)
+                           ]).cpu()
+        n_in = int(stats[43])
+        enough = n_in >= 10
+        dx = lin.solve6_spd(stats[:36].reshape(6, 6) + 1e-6 * eye6,
+                            stats[36:42])
+        if not enough:
+            dx = torch.zeros(6)
+        T = se3.se3_exp(dx) @ T
+        fit = float(stats[42] / max(n_in, 1))
+        done = float(torch.linalg.vector_norm(dx)) < trans_eps or not enough
+        it += 1
+    return ICPResult(transform=T, converged=done and n_in >= 10,
+                     fitness=fit, n_inliers=n_in, iterations=it)
+
+
+def select_registration_method(name: str):
+    """Factory (select_registration_method, registration.cpp:124-188):
+    "icp" point-to-point, "gicp"/"icp_plane" point-to-plane, "ndt"."""
+    if name == "icp":
+        return functools.partial(icp, point_to_plane=False)
+    if name in ("gicp", "icp_plane"):
+        return functools.partial(icp, point_to_plane=True)
+    if name == "ndt":
+        return ndt_align
+    raise ValueError(f"unknown registration method {name}")

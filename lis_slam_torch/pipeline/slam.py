@@ -556,6 +556,27 @@ class SemanticSlam:
         self._pending_bbox: list[tuple] = []
         self._to_register: list[tuple[int, int]] = []
 
+    # -- the odometry and semantic device states (checkpoints, tests) --
+    @property
+    def state(self) -> odometry.OdomState:
+        return self.fstate.odom
+
+    @state.setter
+    def state(self, v: odometry.OdomState):
+        """Also refreshes the host copy of the pose that the LIO chain
+        reads (FusedState.odom_pose_host)."""
+        host = (v.pose.detach().to(**_HOST)
+                if self.fstate.odom_pose_host is not None else None)
+        self.fstate = self.fstate._replace(odom=v, odom_pose_host=host)
+
+    @property
+    def sem_state(self) -> semo.SemanticOdomState:
+        return self.fstate.sem
+
+    @sem_state.setter
+    def sem_state(self, v: semo.SemanticOdomState):
+        self.fstate = self.fstate._replace(sem=v)
+
     # ------------------------------------------------------------------
     def process_scan(self, scan: odometry.ScanInput,
                      gt_labels: np.ndarray | None = None,

@@ -234,3 +234,38 @@ def layer_state(kind: str, params: dict, stats: dict | None = None
     return {"weight": t(params["scale"]), "bias": t(params["bias"]),
             "running_mean": t(stats["mean"]), "running_var": t(stats["var"]),
             "num_batches_tracked": torch.zeros((), dtype=torch.long)}
+
+
+def from_torch_state(state: dict, cfg: SemanticConfig) -> dict:
+    """The inverse of `to_torch_state`: a `RangeNet(cfg).state_dict()` (any
+    device or dtype) as the flax-layout tree {'params', 'batch_stats'} of
+    numpy float32 arrays, which `SemanticSlam(rangenet_params=...)` and the
+    JAX package take. The transposed-conv kernel is flipped back."""
+    def a(key):
+        return state[key].detach().float().cpu().numpy()
+
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, path, leaf, value):
+        node = tree
+        for p in path.split("/"):
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(value)
+
+    for path, kind in expected_layer_sequence(cfg):
+        key = path.replace("/", ".")
+        if kind in ("conv", "convb"):
+            put(params, path, "kernel",
+                np.transpose(a(f"{key}.weight"), (2, 3, 1, 0)))
+            if kind == "convb":
+                put(params, path, "bias", a(f"{key}.bias"))
+        elif kind == "deconv":
+            put(params, path, "kernel", np.transpose(
+                a(f"{key}.weight")[..., ::-1], (2, 3, 0, 1)))
+        else:
+            put(params, path, "scale", a(f"{key}.weight"))
+            put(params, path, "bias", a(f"{key}.bias"))
+            put(stats, path, "mean", a(f"{key}.running_mean"))
+            put(stats, path, "var", a(f"{key}.running_var"))
+    return {"params": params, "batch_stats": stats}

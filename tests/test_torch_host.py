@@ -2,12 +2,16 @@
 
 The port cannot import lis_slam_tpu (its package __init__ imports JAX, and
 the GPU machine has none), so config.py, labels.py, io/synthetic.py,
-utils/se3_np.py, pipeline/navsat.py, io/kitti.py and viz/debug.py are
-copied into lis_slam_torch/, and so is the RangeNet
-checkpoint weights/rangenet_synthetic_slim.npz (the port reads no file of
-the JAX package). These tests pin the copies to the originals.
+utils/se3_np.py, pipeline/navsat.py, io/kitti.py, viz/debug.py and
+golden/replica.py are copied into lis_slam_torch/, and so are the RangeNet
+checkpoint weights/rangenet_synthetic_slim.npz and the native host
+runtime's source (native/lis_host.cpp as csrc/host/lis_host.cpp): the port
+reads no file of the JAX package. These tests pin the copies to the
+originals, and hold that nothing of the port imports JAX or the JAX
+package. The port's StageTimer prints what the JAX one prints.
 """
 
+import ast
 import dataclasses
 import hashlib
 import os
@@ -27,7 +31,8 @@ from lis_slam_torch.io import synthetic as tsyn
 
 _COPIES = ["config.py", "labels.py", "io/synthetic.py", "utils/se3_np.py",
            "weights/rangenet_synthetic_slim.npz", "pipeline/navsat.py",
-           "io/kitti.py", "viz/debug.py"]
+           "io/kitti.py", "viz/debug.py", "golden/replica.py"]
+_REPO = Path(lis_slam_torch.__file__).parent.parent
 CHECKPOINT_SHA256 = (
     "1306bde1bb466a8c6e25331ba48d3cf997552b9b7d19738813f4a1f11b0d3336")
 
@@ -87,3 +92,60 @@ def test_checkpoint_copy_hash():
               / "weights/rangenet_synthetic_slim.npz"):
         with open(p, "rb") as f:
             assert hashlib.sha256(f.read()).hexdigest() == CHECKPOINT_SHA256
+
+
+def test_host_runtime_source_is_verbatim():
+    a = _REPO / "native" / "lis_host.cpp"
+    b = Path(lis_slam_torch.__file__).parent / "csrc" / "host" / "lis_host.cpp"
+    assert a.read_bytes() == b.read_bytes(), "lis_host.cpp drifted"
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_no_jax():
+    """No module of lis_slam_torch/ (run_kitti.py included) and not
+    chip_smoke.py imports jax, flax, optax or lis_slam_tpu."""
+    files = sorted(Path(lis_slam_torch.__file__).parent.rglob("*.py"))
+    files.append(_REPO / "chip_smoke.py")
+    assert any(f.name == "run_kitti.py" for f in files)
+    banned = ("jax", "jaxlib", "flax", "optax", "lis_slam_tpu")
+    for f in files:
+        for mod in _imported_modules(f):
+            assert mod.split(".")[0] not in banned, f"{f}: imports {mod}"
+
+
+def test_stage_timer_summary_matches_jax(tmp_path):
+    from lis_slam_tpu.utils import profiling as jprof
+    from lis_slam_torch.utils import profiling as tprof
+
+    logs = {"jax": [], "port": []}
+    timers = {"jax": jprof.StageTimer(log_every=2, log_fn=logs["jax"].append),
+              "port": tprof.StageTimer(log_every=2,
+                                       log_fn=logs["port"].append)}
+    stats = {"scan": (5, 0.0625, 0.0125), "drain": (17, 0.502, 0.5),
+             "a_very_long_stage_name_past_thirty": (1, 2.5, 2.5)}
+    for t in timers.values():
+        for name in ("scan", "scan", "drain",
+                     "a_very_long_stage_name_past_thirty"):
+            with t.stage(name):
+                pass
+        for name, (count, total, worst) in stats.items():
+            s = t.stats[name]
+            s.count, s.total_s, s.max_s = count, total, worst
+    assert timers["port"].summary() == timers["jax"].summary()
+    assert [m.split(" time")[0] for m in logs["port"]] == \
+        [m.split(" time")[0] for m in logs["jax"]] == ["Average scan"]
+    assert "total_ms" in timers["port"].report()["scan"]
+    # device_trace writes a chrome trace of a block (CPU activities here)
+    import torch
+
+    with tprof.device_trace(str(tmp_path / "trace")):
+        torch.ones(64).cumsum(0)
+    trace = tmp_path / "trace" / "trace.json"
+    assert trace.exists() and b"traceEvents" in trace.read_bytes()
