@@ -3,8 +3,9 @@
 
 Drives the port's front-end odometry step, its LiDAR-inertial path, the
 batched multi-sequence replay, the full SLAM system, the KITTI-replay CLI,
-checkpoint/resume, NDT and RangeNet training, with the three hand-written
-CUDA kernels, through these phases (one or more lines each):
+checkpoint/resume, NDT, RangeNet training and the multi-device layer, with
+the three hand-written CUDA kernels, through these phases (one or more
+lines each):
 
   1. device - torch and CUDA versions, the card's name and power limit;
   2. build  - nvcc builds csrc/knn.cu (K1, exact kNN), csrc/gn.cu (K2,
@@ -107,10 +108,31 @@ CUDA kernels, through these phases (one or more lines each):
               seeded batch: the loss falls; ms a step, peak memory; the
               trained weights as SemanticSlam's rangenet_params label a
               plaza scan.
+ 17. sharded - the multi-device layer (parallel/mesh.py) with ranks
+              started by mesh.spawn (processes; the kernels built once
+              above, each rank loading them): (a) a world of one over
+              NCCL: replay_batched(mesh=make_mesh(1)) of the batched
+              phase's 8 lanes x 24 circuit scans (pallas) bit-equal to
+              replay_batched(mesh=None) in the same rank; (b) two ranks
+              sharing the card over gloo, 4 lanes a rank: lanes 0/1
+              bit-equal, every lane within 5e-3 m of the unsharded replay
+              and ATE < 0.1 m, K1/K2/K3 launched and counted on each rank,
+              a step without a host sync, K1/K2 against their plain
+              versions at each rank's shapes (ranks in turn); (c)
+              make_sharded_train_step at the full darknet53 width,
+              64 x 2048 x 5, batch 2, the train phase's seeded weights and
+              batch, on (data 2), (model 2) and (space 2) over the two
+              ranks and on the world of one: one float32 step against the
+              unsharded step (loss 1e-5, grad norm 1e-4 relative,
+              parameters 2e-3 x lr where the gradient is above 5% of its
+              leaf's largest), then five bf16 steps (the loss falls; ms a
+              step, peak memory per rank); (d) the port's
+              dryrun_multichip(4) over gloo (data 1 x model 2 x space 2).
 
 Every kernel case (K1 at each path's shapes, K2's one launch per GN
-iteration at the front end's, the LIO path's, the refinement's and the
-batched replay's, K3 at the batched replay's) is timed four ways: device ms per call (torch.profiler's CUDA activities,
+iteration at the front end's, the LIO path's, the refinement's, the
+batched replay's and each sharded rank's, K3 at the batched replay's) is
+timed four ways: device ms per call (torch.profiler's CUDA activities,
 summed: the kernel's own time), call ms (CUDA events around back-to-back
 calls: the host's pace where it is the slower), plain ms (its plain
 version on the card) and its bound (bytes moved once over 3.35 TB/s, or
@@ -124,7 +146,9 @@ With --baseline DIR (another checkout, e.g. the parent commit unpacked)
 each case also times that checkout's kernels on the same inputs, in
 turns: baseline, this, this, baseline.
 
-Then one JSON line with each kernel's launches (in all, and per path),
+Then one JSON line with each kernel's launches (in all, and per path;
+the sharded phase's per rank: sharded_w1_r0, sharded_w2_r0,
+sharded_w2_r1),
 error against its plain version, its main case's times and every case,
 and last the device JSON line. Any failed phase exits nonzero with no
 result line; so does a machine without a CUDA device, and a directory
@@ -2256,13 +2280,8 @@ def phase_train(dev, out_dir):
     model, opt = seg_train.create_train_state(
         full, torch.Generator().manual_seed(0), lr=TRAIN_LR, device=dev)
     step = seg_train.make_train_step(model, opt)
-    r = np.random.default_rng(0)
-    shape = (TRAIN_BATCH, full.model_input_h, full.model_input_w)
-    images = torch.as_tensor(r.normal(size=shape + (full.model_input_c,)),
-                             dtype=torch.float32, device=dev)
-    labels = torch.as_tensor(r.integers(0, full.num_classes, shape),
-                             dtype=torch.int32, device=dev)
-    mask = torch.ones(shape, dtype=torch.bool, device=dev)
+    images, labels, mask = (torch.as_tensor(a, device=dev)
+                            for a in _train_inputs(full))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, norms, ms = [], [], []
@@ -2523,7 +2542,7 @@ def _check_k3(calls, cfg):
     return err
 
 
-def _check_batched_kernels(states, scans_b, cfg):
+def _check_batched_kernels(states, scans_b, cfg, path="batched"):
     """K1 and K2 at the batched shapes: the lanes' matched clouds of the
     next scan against their maps, at the lanes' poses. K1 per lane
     bit-equal to knn_plain (tiles skipped share); K2, which builds the
@@ -2562,7 +2581,7 @@ def _check_batched_kernels(states, scans_b, cfg):
                                               max_sq_dist=4.0)
         bound = _k1_lanes_bound(qw, ref, ref_mask, k, 4.0)
         _timed("K1", "K1", f"{mode} B{lanes} Q{q.shape[1]} "
-               f"N{ref.shape[1]} k{k} cap4", "batched",
+               f"N{ref.shape[1]} k{k} cap4", path,
                lambda: knn_cuda.knn_lanes(qw, ref, ref_mask, k=k,
                                           max_sq_dist=4.0),
                lambda: knn_cuda.knn_lanes_plain(qw, ref, ref_mask, k=k,
@@ -2570,7 +2589,7 @@ def _check_batched_kernels(states, scans_b, cfg):
                bound, library_none_reason=K1_NO_LIBRARY,
                tiles_computed=done, tiles_total=total,
                tiles_skipped_share=1.0 - done / max(total, 1))
-        log("K1", f"batched {mode} B{lanes}: every lane bit-equal to the "
+        log("K1", f"{path} {mode} B{lanes}: every lane bit-equal to the "
             f"plain version, tiles skipped {1.0 - done / max(total, 1):.4f}")
         clouds[mode] = (q.contiguous(), q_mask.contiguous(), cand,
                         (d < 4.0).contiguous(), None)
@@ -2597,7 +2616,7 @@ def _check_batched_kernels(states, scans_b, cfg):
         err2 = max(err2, e_k)
         err32 = max(err32, max(_scaled_err(ref32[b, :36].reshape(6, 6),
                                            ref32[b, 36:42], Hd, gd)))
-    log("K2", f"batched B{lanes}: every lane within {GN_ATOL} scaled of the "
+    log("K2", f"{path} B{lanes}: every lane within {GN_ATOL} scaled of the "
         f"float64 plain version, n_valid equal; max scaled err {err2:.3g} "
         f"(the float32 plain version: {err32:.3g})")
     plain = lambda: gn_cuda.gn_iteration_lanes_plain(rows, *cl)  # noqa: E731
@@ -2605,7 +2624,7 @@ def _check_batched_kernels(states, scans_b, cfg):
                      clouds[m_][1].reshape(-1), None)
                     for m_ in ("corner", "surf")], k, lanes=lanes, f64=True)
     _timed("K2", "K2", f"B{lanes} corner Q{qc.shape[1]} + surf "
-           f"Q{qs.shape[1]} k{k}", "batched",
+           f"Q{qs.shape[1]} k{k}", path,
            lambda: gn_cuda.gn_iteration_lanes(*args), plain, kb,
            library_none_reason=K2_NO_LIBRARY)
     return err2
@@ -2764,6 +2783,355 @@ def phase_batched(scans, gt, cfg, dev, out_dir):
     return counts, k3_err
 
 
+# ---------------------------------------------------------------------------
+# sharded: the multi-device layer (parallel/mesh.py) on the one card
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 2  # ranks sharing the card over gloo
+SHARD_GAP_M = 5e-3  # a lane vs the unsharded replay (tests/test_parallel.py:266)
+# one float32 step on a mesh vs the unsharded step (tests/test_torch_seg_train.py)
+SHARD_LOSS_RTOL = 1e-5
+SHARD_NORM_RTOL = 1e-4
+SHARD_GRAD_RTOL = 5e-3  # the gradients, global
+SHARD_PARAM_ATOL_LR = 2e-3  # x lr, where |grad| > 5% of its leaf's largest
+# ... and above this (1000 x Adam's eps, where the first step is lr sign(g)
+# to 0.1%): below it, in the deep leaves at full width, the float32
+# gradient is mostly rounding, and Adam's step turns on it (the float64
+# step, held to 1e-6 a leaf, shows the sharding itself exact)
+SHARD_GRAD_CLEAR = 1e-5
+SHARD_ADAM_ATOL_LR = 1e-4  # x lr: the step is Adam's on its own gradients
+SHARD_F64_RTOL = 1e-6  # float64: loss, grad norm, every gradient leaf
+SHARD_BF16_STEPS = 5
+# (model_parallel, spatial_parallel) of each mesh over the spawn's world
+SHARD_MESHES = {1: ((1, 1),), 2: ((1, 1), (2, 1), (1, 2))}
+
+
+def _train_inputs(full):
+    """The train phase's batch (numpy): TRAIN_BATCH seeded normal images,
+    seeded labels, every pixel valid."""
+    r = np.random.default_rng(0)
+    shape = (TRAIN_BATCH, full.model_input_h, full.model_input_w)
+    return (r.normal(size=shape + (full.model_input_c,)).astype(np.float32),
+            r.integers(0, full.num_classes, shape).astype(np.int32),
+            np.ones(shape, bool))
+
+
+def _train_reference(cfg, variables, batch, dev):
+    """The unsharded port step from `variables` (float32): loss, grad
+    norm, and the parameters after it and the gradients, on the host."""
+    import torch
+    from lis_slam_torch.train import seg_train
+
+    model, opt = seg_train.create_train_state(cfg, None, lr=TRAIN_LR,
+                                              device=dev, variables=variables)
+    m = seg_train.make_train_step(model, opt)(
+        *(torch.as_tensor(a, device=dev) for a in batch))
+    ref = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               params={n: p.detach().cpu() for n, p in
+                       model.named_parameters()},
+               grads={n: p.grad.cpu() for n, p in model.named_parameters()})
+    del model, opt
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _train_gaps(res, ref, cfg, start):
+    """A sharded float32 step (seg_train.train_sharded's result) against
+    the unsharded one: loss and grad norm relative gaps, the gradients'
+    global relative gap; the largest gap over lr between the parameters
+    after the step and Adam's first step on the sharded gradients from
+    `start`, over every entry; the largest parameter gap over lr to the
+    unsharded step where the gradient is above 5% of its leaf's largest
+    entry and above SHARD_GRAD_CLEAR (with its leaf and the share of
+    entries so held), and the largest over the other entries above 5%."""
+    from lis_slam_torch.semantic import weights as W
+
+    after = W.to_torch_state(res["variables"], cfg)
+    worst, leaf, held, total, d2, g2, low, adam = (0.0, None, 0, 0, 0.0,
+                                                   0.0, 0.0, 0.0)
+    for n, p in ref["params"].items():
+        g, gs = ref["grads"][n], res["grads"][n]
+        d2 += float(((gs - g) ** 2).sum())
+        g2 += float((g ** 2).sum())
+        own = start[n] - TRAIN_LR * gs / (gs.abs() + 1e-8)
+        adam = max(adam, float((after[n] - own).abs().max()) / TRAIN_LR)
+        gap = (after[n] - p).abs() / TRAIN_LR
+        above = g.abs() > 0.05 * g.abs().max()
+        clear = above & (g.abs() > SHARD_GRAD_CLEAR)
+        if clear.any() and float(gap[clear].max()) > worst:
+            worst, leaf = float(gap[clear].max()), n
+        if (above & ~clear).any():
+            low = max(low, float(gap[above & ~clear].max()))
+        held += int(clear.sum())
+        total += p.numel()
+    return dict(loss_rel=abs(res["losses"][0] - ref["loss"]) / ref["loss"],
+                norm_rel=abs(res["grad_norms"][0] - ref["grad_norm"])
+                / ref["grad_norm"], grad_rel=(d2 / g2) ** 0.5,
+                adam_gap_lr=adam, param_gap_lr=worst, param_gap_leaf=leaf,
+                held=held / total, small_gap_lr=low)
+
+
+def _step64(mesh, cfg, variables, batch, dev):
+    """One float64 sharded training step of a float64 RangeNet (mesh
+    None: the world of one, no collective): loss, grad norm and every
+    gradient, whole, on the host."""
+    import torch
+    from lis_slam_torch.models import rangenet
+    from lis_slam_torch.parallel import mesh as pmesh
+    from lis_slam_torch.semantic import weights as W
+    from lis_slam_torch.train import seg_train
+
+    model = rangenet.RangeNet(
+        num_classes=cfg.num_classes, in_features=cfg.model_input_c,
+        dtype=torch.float64, enc_blocks=cfg.enc_blocks,
+        enc_widths=cfg.enc_widths, dec_widths=cfg.dec_widths,
+        param_dtype=torch.float64).double()
+    model.load_state_dict(W.to_torch_state(variables, cfg))
+    model = model.to(dev).train()
+    opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR)
+    step, shard_state, _ = seg_train.make_sharded_train_step(model, opt, mesh)
+    shard_state(model, opt)
+    img, pl = pmesh.shard_images(mesh), pmesh.shard_planes(mesh)
+    images, labels, mask = (torch.as_tensor(a) for a in batch)
+    out = step(img(images).to(dev, torch.float64), pl(labels).to(dev),
+               pl(mask).to(dev))
+    grads = {n: shard_state.placements[n].gather(p.grad).cpu()
+             for n, p in model.named_parameters()}
+    res = float(out["loss"]), float(out["grad_norm"]), grads
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def _gaps64(res, ref):
+    """A float64 sharded step against the world of one: loss and grad norm
+    relative gaps, the largest gradient gap over its leaf's largest entry
+    and that leaf."""
+    (loss, norm, grads), (l1, n1, g1) = res, ref
+    worst = max((float((grads[k] - g).abs().max() / g.abs().max()), k)
+                for k, g in g1.items())
+    return dict(loss_rel=abs(loss - l1) / l1, norm_rel=abs(norm - n1) / n1,
+                leaf_rel=worst[0], leaf=worst[1])
+
+
+def _shard_rank(rank, mesh, clouds, cfg):
+    """One rank of the sharded phase (a parallel/mesh.spawn function):
+    replay_batched over the mesh (the batched phase's 8 lanes of
+    BATCH_SCANS circuit scans), its K1/K2/K3 launches; on a world of one
+    also the unsharded replay in this process; the lanes' step under
+    sync debug mode "error"; K1/K2 against their plain versions at this
+    rank's shapes, one rank at a time; then make_sharded_train_step at
+    the full darknet53 width on each mesh of SHARD_MESHES: one float32
+    step held to the unsharded step (computed here on rank 0) and
+    SHARD_BF16_STEPS bf16 steps. Returns rank 0's view; launches and
+    errors of every rank."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from lis_slam_torch.config import SemanticConfig
+    from lis_slam_torch.models import rangenet
+    from lis_slam_torch.parallel import batched
+    from lis_slam_torch.parallel import mesh as pmesh
+    from lis_slam_torch.pipeline import odometry
+    from lis_slam_torch.semantic import weights as W
+    from lis_slam_torch.train import seg_train
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    world = mesh.size()
+    scans = [odometry.ScanInput(points=torch.as_tensor(p, device=dev),
+                                valid=torch.as_tensor(v, device=dev))
+             for p, v in clouds]
+    starts = _lane_starts(BATCH_LANES, len(scans))
+    seqs = [scans[s:s + BATCH_SCANS] for s in starts]
+    out = {}
+    _zero_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    poses = batched.replay_batched(seqs, cfg, mesh=mesh, device=dev)
+    out["wall_s"] = time.perf_counter() - t
+    counts = _launches()
+    out["poses"] = poses
+    if world == 1:
+        out["unsharded"] = batched.replay_batched(seqs, cfg, device=dev)
+
+    # this rank's lanes: the step without a host sync, then K1/K2 at its
+    # shapes against their plain versions (ranks in turn: one card)
+    step, shard, _ = batched.make_sharded_step(cfg, mesh)
+    lanes = BATCH_LANES // pmesh.axis(mesh, "data").size
+    mine = shard(torch.as_tensor(starts)).tolist()
+    stacked = [batched.stack_scans([scans[s + i] for s in mine])
+               for i in range(4)]
+    states = batched.batched_init_state(cfg, lanes, dev)
+    kf_every = max(1, cfg.runtime.batched_kf_every)
+    for i in range(3):
+        states, _ = step(states, stacked[i], allow_kf=(i % kf_every == 0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(states, stacked[3], allow_kf=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    errs = None
+    for r in range(world):
+        if r == rank:
+            errs = _check_batched_kernels(states, stacked[3], cfg,
+                                          path=f"sharded w{world} r{rank}")
+        if world > 1:
+            dist.barrier()
+    every = [None] * world
+    if world > 1:
+        dist.all_gather_object(every, (counts, errs))
+    else:
+        every = [(counts, errs)]
+    out["launches"] = [c for c, _e in every]
+    out["k2_err"] = max(e for _c, e in every)
+    out["cases"] = {k: [c for c in CASES[k] if c["path"].startswith(
+        "sharded")] for k in ("K1", "K2")}
+    del scans, seqs, stacked, states
+    torch.cuda.empty_cache()
+
+    full = SemanticConfig(enabled=True)
+    f32 = dataclasses.replace(full, fp16=False)
+    variables = rangenet.init_params(full, torch.Generator().manual_seed(0))
+    batch = _train_inputs(full)
+    ref = _train_reference(f32, variables, batch, dev) if rank == 0 else None
+    ref64 = _step64(None, f32, variables, batch, dev) if rank == 0 else None
+    start = W.to_torch_state(variables, f32)
+    out["train"] = {}
+    for mp, sp in SHARD_MESHES[world]:
+        r32 = seg_train.train_sharded(rank, mesh, f32, variables, *batch,
+                                      lr=TRAIN_LR, steps=1, model_parallel=mp,
+                                      spatial_parallel=sp)
+        gaps = _train_gaps(r32, ref, f32, start) if rank == 0 else None
+        del r32
+        r64 = _step64(pmesh.make_mesh(world, mp, sp, device="cuda"), f32,
+                      variables, batch, dev)
+        gaps64 = _gaps64(r64, ref64) if rank == 0 else None
+        del r64
+        r16 = seg_train.train_sharded(rank, mesh, full, variables, *batch,
+                                      lr=TRAIN_LR, steps=SHARD_BF16_STEPS,
+                                      model_parallel=mp, spatial_parallel=sp)
+        out["train"][(mp, sp)] = dict(
+            mesh=dict(data=world // (mp * sp), model=mp, space=sp), f32=gaps,
+            f64=gaps64,
+            losses=r16["losses"], step_ms=r16["step_ms"],
+            peak_bytes=r16["peak_bytes"])
+        del r16
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded(clouds, gt, cfg, dev, out_dir):
+    """The multi-device layer on the one card: (a) a world of one on NCCL,
+    (b) + (c) two ranks sharing the card over gloo, (d) the port's
+    dryrun_multichip(4) over gloo. Returns the kernels' launches per path
+    and rank, K2's largest error at the sharded shapes, and the ranks'
+    kernel cases."""
+    import torch
+    from lis_slam_torch import entry
+    from lis_slam_torch.parallel import mesh as pmesh
+    from lis_slam_torch.pipeline import trajectory
+
+    cp = _batched_cfg(cfg, "pallas")
+    starts = _lane_starts(BATCH_LANES, len(clouds))
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    w1 = pmesh.spawn(1, _shard_rank, clouds, cp, backend="nccl", device=dev)
+    t1 = time.perf_counter() - t
+    check(np.array_equal(w1["poses"], w1["unsharded"]),
+          "sharded: the world of one differs from the unsharded replay")
+    log("sharded", f"(a) world 1 over nccl: replay_batched(mesh=make_mesh(1))"
+        f" B {BATCH_LANES} x {BATCH_SCANS} bit-equal to replay_batched("
+        f"mesh=None) in the same rank; replay {w1['wall_s']:.3f} s (first "
+        f"call included), K1/K2/K3 launches {w1['launches'][0]}; spawn "
+        f"{t1:.1f} s in all")
+    t = time.perf_counter()
+    w2 = pmesh.spawn(SHARD_RANKS, _shard_rank, clouds, cp, backend="gloo",
+                     device=dev)
+    t2 = time.perf_counter() - t
+    poses, ref = w2["poses"], w1["unsharded"]
+    check(poses.shape == (BATCH_LANES, BATCH_SCANS, 6)
+          and bool(np.all(np.isfinite(poses))),
+          "sharded: poses not finite (B, N, 6)")
+    check(bool(np.array_equal(poses[0], poses[1])),
+          "sharded: lanes 0 and 1 differ")
+    gap = float(np.linalg.norm(poses[..., 3:] - ref[..., 3:], axis=-1).max())
+    ates = [trajectory.ate_rmse(
+        poses[b], trajectory.relative_to_first(gt[s:s + BATCH_SCANS]),
+        align=False) for b, s in enumerate(starts)]
+    log("sharded", f"(b) {SHARD_RANKS} ranks on the card over gloo, "
+        f"{BATCH_LANES // SHARD_RANKS} lanes a rank: lanes 0/1 bit-equal, "
+        f"max position gap to the unsharded replay {gap:.3g} m (bar "
+        f"{SHARD_GAP_M}), max |pose difference| "
+        f"{float(np.abs(poses - ref).max())}, ATE per lane (m) "
+        f"{[round(a, 4) for a in ates]}; K1/K2/K3 launches per rank "
+        f"{w2['launches']}; replay {w2['wall_s']:.3f} s on rank 0; K2 at the "
+        f"ranks' shapes within {w2['k2_err']:.3g} scaled; spawn {t2:.1f} s")
+    check(gap < SHARD_GAP_M, f"sharded: a lane {gap} m off the unsharded")
+    check(max(ates) < ATE_MAX, f"sharded: ATE {max(ates)}")
+    for res in (w1, w2):
+        for r, c in enumerate(res["launches"]):
+            check(all(x > 0 for x in c), f"sharded: rank {r} of "
+                  f"{len(res['launches'])} launched K1/K2/K3 {c}")
+    meshes = [(world, tr) for world, res in ((1, w1), (SHARD_RANKS, w2))
+              for tr in res["train"].values()]
+    for world, tr in meshes:
+        g = tr["f32"]
+        log("sharded", f"(c) world {world} mesh {tr['mesh']}: f32 step "
+            f"vs unsharded: loss {g['loss_rel']:.3g} rel, grad norm "
+            f"{g['norm_rel']:.3g} rel, gradients {g['grad_rel']:.3g} "
+            f"rel (global), Adam on its own gradients within "
+            f"{g['adam_gap_lr']:.3g} x lr, params {g['param_gap_lr']:.3g} "
+            f"x lr on "
+            f"{g['held']:.3f} of the entries (the largest in "
+            f"{g['param_gap_leaf']}; where |g| <= {SHARD_GRAD_CLEAR} "
+            f"{g['small_gap_lr']:.3g} x lr); f64 "
+            f"step vs the world of one: loss {tr['f64']['loss_rel']:.3g}, "
+            f"grad norm {tr['f64']['norm_rel']:.3g}, every leaf within "
+            f"{tr['f64']['leaf_rel']:.3g} of its largest "
+            f"({tr['f64']['leaf']}); bf16 losses "
+            f"{', '.join(f'{x:.4f}' for x in tr['losses'])}; ms a step "
+            f"(CUDA events, rank 0) "
+            f"{', '.join(f'{x:.2f}' for x in tr['step_ms'])}; peak "
+            f"device memory per rank {tr['peak_bytes']} bytes")
+    for world, tr in meshes:
+        g = tr["f32"]
+        check(g["loss_rel"] <= SHARD_LOSS_RTOL
+              and g["norm_rel"] <= SHARD_NORM_RTOL
+              and g["grad_rel"] <= SHARD_GRAD_RTOL
+              and g["param_gap_lr"] <= SHARD_PARAM_ATOL_LR
+              and g["adam_gap_lr"] <= SHARD_ADAM_ATOL_LR,
+              f"sharded: world {world} mesh {tr['mesh']} f32 step {g}")
+        g64 = tr["f64"]
+        check(max(g64["loss_rel"], g64["norm_rel"], g64["leaf_rel"])
+              <= SHARD_F64_RTOL,
+              f"sharded: world {world} mesh {tr['mesh']} f64 step {g64}")
+        check(bool(np.isfinite(tr["losses"]).all())
+              and tr["losses"][-1] < tr["losses"][0],
+              f"sharded: bf16 loss did not fall ({tr['losses']})")
+    t = time.perf_counter()
+    dry = entry.dryrun_multichip(4, device=dev, backend="gloo")
+    t4 = time.perf_counter() - t
+    log("sharded", f"(d) dryrun_multichip(4) over gloo on the card: mesh "
+        f"{dry['mesh']}, loss {dry['loss']:.4f}, poses (4, 6) finite; "
+        f"{t4:.1f} s")
+    with open(os.path.join(out_dir, "sharded.json"), "w") as f:
+        json.dump(dict(gap_m=gap, ate=ates, launches_w1=w1["launches"],
+                       launches_w2=w2["launches"],
+                       train={f"w{w} {k}": v for w, res in
+                              ((1, w1), (SHARD_RANKS, w2))
+                              for k, v in res["train"].items()},
+                       dryrun_loss=dry["loss"]), f, default=str)
+    launches = {"sharded_w1_r0": tuple(w1["launches"][0])}
+    launches.update({f"sharded_w{SHARD_RANKS}_r{r}": tuple(c)
+                     for r, c in enumerate(w2["launches"])})
+    for res in (w1, w2):
+        for k in ("K1", "K2"):
+            CASES[k].extend(res["cases"][k])
+    return launches, max(w1["k2_err"], w2["k2_err"])
+
+
 def _load_baseline(root: str):
     """(knn_cuda, gn_cuda) of the lis_slam_torch package under `root`,
     imported under another name so both checkouts live in one process;
@@ -2852,6 +3220,8 @@ def main() -> int:
         phase = "batched"
         batched_launches, k3 = phase_batched(scans, gt, cfg, dev, args.out)
         launches.update(batched_launches)
+        clouds = [(c.points.cpu().numpy(), c.valid.cpu().numpy())
+                  for c in scans]
         del scans
         phase = "slam"
         slam_launches, (k1_slam, k2_slam), plaza = phase_slam(dev, args.out)
@@ -2878,6 +3248,11 @@ def main() -> int:
         del resumed_from
         phase = "train"
         phase_train(dev, args.out)
+        phase = "sharded"
+        sharded_launches, k2_shard = phase_sharded(clouds, gt, cfg, dev,
+                                                   args.out)
+        launches.update(sharded_launches)
+        k2 = max(k2, k2_shard)
         with open(os.path.join(args.out, "kernel_cases.json"), "w") as f:
             json.dump({"card": card, "cases": CASES}, f, indent=1)
     except BaseException as e:  # any failure: report and exit nonzero

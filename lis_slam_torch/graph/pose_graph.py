@@ -54,6 +54,29 @@ class PoseGraph(NamedTuple):
     prior_mask: torch.Tensor  # (P,)
 
 
+def empty_graph(max_nodes: int, max_edges: int, max_priors: int,
+                device: torch.device | str = "cpu") -> PoseGraph:
+    """A graph of the given capacities with nothing in it (identity poses
+    and measurements, unit weights, every mask False), in GraphBuilder's
+    dtypes."""
+    def eye(n):
+        return torch.eye(4, device=device).expand(n, 4, 4).clone()
+
+    def zeros(n, dtype):
+        return torch.zeros(n, dtype=dtype, device=device)
+
+    return PoseGraph(
+        nodes=eye(max_nodes), node_mask=zeros(max_nodes, torch.bool),
+        edge_i=zeros(max_edges, torch.int64),
+        edge_j=zeros(max_edges, torch.int64), edge_z=eye(max_edges),
+        edge_weight=torch.ones((max_edges, 6), device=device),
+        edge_mask=zeros(max_edges, torch.bool),
+        edge_robust=zeros(max_edges, torch.bool),
+        prior_idx=zeros(max_priors, torch.int64), prior_z=eye(max_priors),
+        prior_weight=torch.ones((max_priors, 6), device=device),
+        prior_mask=zeros(max_priors, torch.bool))
+
+
 def adjoint(T: torch.Tensor) -> torch.Tensor:
     """SE(3) adjoint for twist order [rho, w]: (..., 6, 6)."""
     R = T[..., :3, :3]

@@ -389,3 +389,17 @@ class LoopDetector:
         self.sigs.append(sig if keep else None)
         self._n_stored += keep
         self.poses.append(np.asarray(pose_xyyaw, dtype=np.float64))
+
+    def add_and_detect(self, desc: Descriptors, pose_xyyaw: np.ndarray,
+                       clouds: CloudRefs) -> list[LoopCandidate]:
+        """Gate, score (waiting for the result) and append, in one call.
+        The SLAM pipeline uses the asynchronous pieces directly."""
+        ids = self.gate(pose_xyyaw)
+        best = None
+        if len(ids):
+            res = self.score_async(ids, desc.signature, clouds, pose_xyyaw)
+            best = self.result_to_candidate(
+                ids, tuple(r.cpu().numpy() for r in res))
+        self.append(select_descriptor(desc, self.cfg.descriptor),
+                    desc.signature, pose_xyyaw)
+        return [best] if best is not None else []

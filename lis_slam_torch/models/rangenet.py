@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import SemanticConfig
+from ..parallel import mesh as pmesh
 
 _STEM = 32  # stem conv width (the released darknet53's)
 
@@ -354,3 +355,235 @@ def forward_flops(model: RangeNet, x: torch.Tensor) -> int:
     with FlopCounterMode(display=False) as counter:
         model(x)
     return int(counter.get_total_flops())
+
+
+# ---------------------------------------------------------------------------
+# The sharded forward: tensor parallelism over 'model', the image width over
+# 'space', batch items over 'data' (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the input gradient over
+    'model'. Put before a convolution whose output channels are split over
+    'model': each rank's gradient is its channels' part."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return pmesh.all_reduce(g.contiguous().clone(), ctx.ax), None
+
+
+class _GatherChannels(torch.autograd.Function):
+    """The channels of every 'model' rank, in rank order. Backward: this
+    rank's slice of the gradient; every consumer of the gathered tensor
+    runs on every 'model' rank, or sums its partial input gradient itself
+    (_CopyToModel), so the slice is the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, y, ax):
+        ctx.ax, ctx.c = ax, y.shape[1]
+        return torch.cat(pmesh.all_gather(y, ax), dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(1, ctx.ax.index * ctx.c, ctx.c), None
+
+
+class _Halo(torch.autograd.Function):
+    """(B, C, H, W) local columns with `left` columns of the left
+    neighbour's and `right` of the right neighbour's on either side over
+    'space', zeros at the global image edges. Backward: the halo columns'
+    gradients go back to the ranks that own them."""
+
+    @staticmethod
+    def forward(ctx, x, ax, left, right):
+        ctx.ax, ctx.left, ctx.right = ax, left, right
+        w = x.shape[3]
+        edges = torch.cat([x[..., :right], x[..., w - left:]], dim=3)
+        parts = pmesh.all_gather(edges, ax)
+        zl = x.new_zeros(x.shape[:3] + (left,))
+        zr = x.new_zeros(x.shape[:3] + (right,))
+        lh = parts[ax.index - 1][..., right:] if ax.index > 0 else zl
+        rh = parts[ax.index + 1][..., :right] if ax.index + 1 < ax.size \
+            else zr
+        return torch.cat([lh, x, rh], dim=3)
+
+    @staticmethod
+    def backward(ctx, g):
+        ax, left, right = ctx.ax, ctx.left, ctx.right
+        w = g.shape[3] - left - right
+        gx = g[..., left:left + w].clone()
+        parts = pmesh.all_gather(
+            torch.cat([g[..., :left], g[..., left + w:]], dim=3), ax)
+        if ax.index > 0 and right:  # the left neighbour's right halo
+            gx[..., :right] += parts[ax.index - 1][..., left:]
+        if ax.index + 1 < ax.size and left:  # the right one's left halo
+            gx[..., w - left:] += parts[ax.index + 1][..., :left]
+        return gx, None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over mesh dims; the backward sums the gradient over the same
+    dims (every rank's loss term reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, *axes):
+        ctx.axes = axes
+        return pmesh.all_reduce(x.clone(), *axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (pmesh.all_reduce(g.contiguous().clone(), *ctx.axes),
+                *(None for _ in ctx.axes))
+
+
+class _Sharding:
+    """What the sharded forward needs: the mesh's axes and the names of
+    the parameters split over 'model'."""
+
+    def __init__(self, model: "RangeNet", mesh, sharded):
+        self.data = pmesh.axis(mesh, "data")
+        self.model = pmesh.axis(mesh, "model")
+        self.space = pmesh.axis(mesh, "space")
+        self.sharded = set(sharded)
+        self.names = {id(m): n for n, m in model.named_modules()}
+
+    def split(self, module: nn.Module) -> bool:
+        return f"{self.names[id(module)]}.weight" in self.sharded
+
+
+def _conv_sharded(conv, x: torch.Tensor, sh: _Sharding) -> torch.Tensor:
+    """`conv` (its kernel cast to x's dtype) on this rank's block: x (B,
+    C, H, W_local) replicated over 'model'; the output holds this rank's
+    output channels where the kernel is split over 'model', and its block
+    of the global output's columns. Over 'space' a Conv2d takes flax's
+    "SAME" pads of the whole width as halo columns, so its local output
+    is W_local / stride wide; the decoder's ConvTranspose2d (kernel 4,
+    stride 2, padding 1) takes one column a side and crops its output to
+    2 W_local."""
+    if sh.split(conv):
+        x = _CopyToModel.apply(x, sh.model)
+    transposed = isinstance(conv, nn.ConvTranspose2d)
+    w = conv.weight.to(x.dtype)
+    if sh.space.size == 1:
+        if transposed:
+            return F.conv_transpose2d(x, w, None, conv.stride, conv.padding)
+        return _conv_same(conv, x)
+    k, s = conv.kernel_size[1], conv.stride[1]
+    if transposed:
+        if (k, s, conv.padding[1]) != (4, 2, 1):
+            raise ValueError("forward_sharded: a transposed conv other than "
+                             "kernel 4, stride 2, padding 1 over 'space'")
+        return F.conv_transpose2d(_Halo.apply(x, sh.space, 1, 1), w, None,
+                                  conv.stride, (conv.padding[0], 1 + s))
+    left, _ = _same_pads(x.shape[3] * sh.space.size, k, s)
+    if k > 1:
+        x = _Halo.apply(x, sh.space, left, k - s - left)
+    hl, hh = _same_pads(x.shape[2], conv.kernel_size[0], conv.stride[0])
+    return F.conv2d(F.pad(x, (0, 0, hl, hh)), w, conv.bias, conv.stride)
+
+
+def _batch_norm_sharded(bn: nn.BatchNorm2d, x: torch.Tensor,
+                        sh: _Sharding, split: bool) -> torch.Tensor:
+    """_batch_norm on this rank's block: in train mode the statistics of
+    the global batch over 'data' and 'space', by flax's rule as the
+    unsharded forward takes it (the mean and E[x^2] from one all-reduced
+    pair of sums, the biased variance E[x^2] - E[x]^2 clipped at 0, as
+    JAX's GSPMD step computes them), the running statistics (whole on
+    every rank) moved identically everywhere; `split`: x holds this
+    rank's 'model' slice of the channels."""
+    c = x.shape[1]
+    sl = slice(sh.model.index * c, (sh.model.index + 1) * c) if split \
+        else slice(None)
+    if not bn.training:
+        mean, var = bn.running_mean[sl], bn.running_var[sl]
+    else:
+        count = x.numel() // c * sh.data.size * sh.space.size
+        sums = _AllReduce.apply(torch.stack([x.sum(dim=(0, 2, 3)),
+                                             (x * x).sum(dim=(0, 2, 3))]),
+                                sh.data, sh.space) / count
+        mean = sums[0]
+        var = torch.clamp(sums[1] - mean * mean, min=0.0)
+        with torch.no_grad():
+            stats = torch.stack([mean, var])
+            if split:
+                stats = torch.cat(pmesh.all_gather(stats, sh.model), dim=1)
+            m = bn.momentum
+            bn.running_mean.mul_(1.0 - m).add_(stats[0], alpha=m)
+            bn.running_var.mul_(1.0 - m).add_(stats[1], alpha=m)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean[:, None, None]) * mul[:, None, None] + \
+        bn.bias[:, None, None]
+
+
+def _gather(y: torch.Tensor, sh: _Sharding, split: bool) -> torch.Tensor:
+    return _GatherChannels.apply(y, sh.model) if split and \
+        sh.model.group is not None else y
+
+
+def _conv_bn_leaky(conv: nn.Module, bn: nn.BatchNorm2d, dtype: torch.dtype,
+                   x: torch.Tensor, sh: _Sharding) -> torch.Tensor:
+    """Conv (in `dtype`) -> BatchNorm -> leaky ReLU on this rank's block,
+    the output channels gathered over 'model'."""
+    split = sh.split(conv)
+    if split != sh.split(bn):
+        raise ValueError(f"{sh.names[id(conv)]} and its BatchNorm are not "
+                         "split alike over 'model'")
+    y = _conv_sharded(conv, x.to(dtype), sh)
+    # BatchNorm in float32 (float64 stays: a float64 model checks the
+    # sharding to float64 rounding)
+    y = y.to(torch.promote_types(y.dtype, torch.float32))
+    y = F.leaky_relu(_batch_norm_sharded(bn, y, sh, split), 0.1)
+    return _gather(y, sh, split)
+
+
+def forward_sharded(model: RangeNet, x: torch.Tensor, mesh,
+                    sharded) -> torch.Tensor:
+    """RangeNet.forward on this rank's block of the image, x (B_local, H,
+    W_local, C), over a parallel/mesh.py mesh: the parameters named in
+    `sharded` hold this rank's 'model' slice of their output channels
+    (parallel/mesh.shard_params_tp); each such convolution, its
+    BatchNorm and leaky ReLU run on the slice and the channels are
+    gathered over 'model' before the next consumer; every convolution
+    with a kernel wider than 1 exchanges halo columns with its 'space'
+    neighbours; train-mode BatchNorm takes the global batch's statistics
+    (one all-reduce of two sums over 'data' and 'space').
+    Returns this rank's block of the logits (B_local, H, W_local,
+    num_classes), equal to the unsharded forward's up to float
+    rounding. The local width must be a multiple of 32 (five stride-2
+    stages)."""
+    if x.shape[2] % 32:
+        raise ValueError(f"forward_sharded: local width {x.shape[2]} is not "
+                         "a multiple of 32")
+    sh = _Sharding(model, mesh, sharded)
+
+    def cbl(m, y):
+        return _conv_bn_leaky(m.Conv_0, m.BatchNorm_0, m.dtype, y, sh)
+
+    y = x.to(model.dtype).permute(0, 3, 1, 2).contiguous()
+    enc = model.Darknet53Encoder_0
+    y = cbl(enc.ConvBnLeaky_0, y)
+    skips = []
+    for down, res in enc.stages:
+        skips.append(y)
+        y = cbl(enc.get_submodule(down), y)
+        for name in res:
+            blk = enc.get_submodule(name)
+            y = y + cbl(blk.ConvBnLeaky_1, cbl(blk.ConvBnLeaky_0, y))
+    for i, skip in enumerate(reversed(skips)):
+        up = model.get_submodule(f"UpBlock_{i}")
+        y = _conv_bn_leaky(up.ConvTranspose_0, up.BatchNorm_0, up.dtype, y,
+                           sh)
+        y = cbl(up.ConvBnLeaky_0, y)
+        if hasattr(up, "Conv_0"):
+            skip = _gather(_conv_sharded(up.Conv_0, skip.to(up.dtype), sh),
+                           sh, sh.split(up.Conv_0))
+        y = y + skip
+    head = model.Conv_0
+    y = _gather(_conv_sharded(head, y, sh), sh, sh.split(head))
+    return y.permute(0, 2, 3, 1)

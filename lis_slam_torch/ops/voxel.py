@@ -136,6 +136,41 @@ def _one_lane(fn):
     return wrap
 
 
+def morton_sort_points(points: torch.Tensor, mask: torch.Tensor,
+                       quant: float = 1.0):
+    """A padded (P, 3) cloud sorted spatially by its morton key (stable;
+    invalid rows last). Returns (points, mask) reordered."""
+    key = _masked_key(_voxel_key_morton(points, mask, quant), mask)
+    _, order = lane_sort(key[None])
+    return points[order[0]], mask[order[0]]
+
+
+def voxel_downsample_labeled(points: torch.Tensor, labels: torch.Tensor,
+                             mask: torch.Tensor, leaf: float, capacity: int):
+    """Centroid per voxel with the voxel's largest label (clouds already
+    split by class, as the reference filters them). Returns (points (C, 3),
+    labels (C,) int32, -1 in empty slots, mask (C,))."""
+    h = _masked_key(_voxel_key(points, mask, leaf), mask)
+    hs, order = lane_sort(h[None])
+    hs, order = hs[0], order[0]
+    ms = mask[order]
+    is_new, _ = _run_starts(hs)
+    seg = lane_cumsum(is_new[None].to(torch.int32))[0] - 1
+    dest = torch.where(ms & (seg < capacity) & (seg >= 0), seg,
+                       torch.full_like(seg, capacity))
+    sums = torch.zeros((capacity + 1, 3), dtype=points.dtype,
+                       device=points.device).index_add_(0, dest,
+                                                        points[order])
+    cnts = torch.zeros(capacity + 1, dtype=torch.int32,
+                       device=points.device).index_add_(
+        0, dest, torch.ones_like(dest, dtype=torch.int32))
+    lab = torch.full((capacity + 1,), -1, dtype=torch.int32,
+                     device=points.device).scatter_reduce_(
+        0, dest, labels[order].to(torch.int32), "amax")
+    out = sums[:capacity] / torch.clamp(cnts[:capacity, None], min=1)
+    return out, lab[:capacity], cnts[:capacity] > 0
+
+
 def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf: float,
                      capacity: int, payloads: tuple = ()):
     """One point per voxel: the FIRST in input order (stable sort on the

@@ -10,8 +10,12 @@ the JAX package vmaps the step and must force the op-by-op GN path (a
 Pallas call does not batch under vmap), the lanes here follow
 cfg.matching.gn_backend: K2 and K3 take every lane in one launch.
 
-`make_sharded_step` (the JAX mesh sharding of the lane axis) is not
-ported: it needs several devices.
+`make_sharded_step` shards the lanes over a parallel/mesh.py mesh's 'data'
+dim, as the JAX package's NamedSharding(mesh, P("data")): each rank steps
+its contiguous block of lanes through the same batched_odom_step (K1, K2
+and K3 inside), replicated over 'model'. Lanes are independent, so a step
+has no collective; `replay_batched(mesh=...)` gathers every lane's poses
+once, after the last scan.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from ..config import SlamConfig
 from ..pipeline import driver, odometry
 from ..utils import device as devices
+from . import mesh as pmesh
 
 
 def batched_init_state(cfg: SlamConfig, batch: int,
@@ -77,26 +82,54 @@ def _as_scan(scan, cfg: SlamConfig, device: torch.device):
     return driver.pad_scan(np.asarray(scan), cfg, device)
 
 
-def replay_batched(sequences, cfg: SlamConfig,
+def make_sharded_step(cfg: SlamConfig, mesh):
+    """(step, shard, seq_sharding) for lanes sharded over the mesh's
+    'data' dim (replicated over 'model'): `shard(tree)` takes this rank's
+    contiguous block of the lane dim of every tensor of an OdomState or
+    ScanInput (None fields stay None), `step(states, scans,
+    allow_kf=True)` is batched_odom_step on those lanes, and
+    `seq_sharding` the lanes' mesh.Placement (its `gather` puts the lanes
+    of every rank back together)."""
+    seq_sharding = pmesh.shard_batch(mesh)
+
+    def shard(tree):
+        return pmesh.apply_sharding(tree, seq_sharding)
+
+    def step(states, scans, allow_kf: bool = True):
+        return batched_odom_step(states, scans, cfg, allow_kf=allow_kf)
+
+    return step, shard, seq_sharding
+
+
+def replay_batched(sequences, cfg: SlamConfig, mesh=None,
                    device: torch.device | str = "cuda") -> np.ndarray:
     """sequences: B lists of scans (each an odometry.ScanInput on `device`,
     a SyntheticScan-like host object with ``.points`` and ``.valid``, or a
     raw (P, 4) numpy cloud); the shortest sets the length N. Returns
     the poses (B, N, 6) as numpy. Keyframe merges run on the host cadence
     cfg.runtime.batched_kf_every (1 = every scan, exactly the uniform step;
-    scan 0 always merges so the map is seeded)."""
+    scan 0 always merges so the map is seeded). With a parallel/mesh.py
+    `mesh` (called on every rank) each rank replays its block of the
+    lanes (B must divide over 'data') and every rank returns all B lanes'
+    poses, gathered once after the last scan."""
     device = devices.resolve(device)
     batch = len(sequences)
     n = min(len(s) for s in sequences)
     kf_every = max(1, cfg.runtime.batched_kf_every)
-    states = batched_init_state(cfg, batch, device)
+    step, _shard, lanes = make_sharded_step(cfg, mesh)
+    data = pmesh.axis(mesh, "data")  # mesh None: all lanes here
+    if batch % data.size:
+        raise ValueError(f"replay_batched: {batch} lanes do not split over "
+                         f"{data.size} 'data' ranks")
+    per = batch // data.size
+    sequences = sequences[data.index * per:(data.index + 1) * per]
+    states = batched_init_state(cfg, per, device)
     poses = []
     for i in range(n):
         scans = stack_scans([_as_scan(seq[i], cfg, device)
                              for seq in sequences])
-        states, outs = batched_odom_step(states, scans, cfg,
-                                         allow_kf=(i % kf_every == 0))
+        states, outs = step(states, scans, allow_kf=(i % kf_every == 0))
         poses.append(outs.pose)
     if not poses:
         return np.zeros((batch, 0, 6), np.float32)
-    return torch.stack(poses, dim=1).cpu().numpy()
+    return lanes.gather(torch.stack(poses, dim=1)).cpu().numpy()

@@ -23,7 +23,7 @@ from .. import labels as L
 from ..config import SlamConfig
 from ..mapping import submap as sm
 from ..ops import icp as icp_ops
-from ..ops import knn, projection, scan_match, voxel
+from ..ops import knn, pretreatment, projection, scan_match, voxel
 from ..utils import device as devices, se3
 
 _POLE, _DYN, _GND, _BLD = (int(np.where(L.CATEGORY_IDS == c)[0][0]) for c in (
@@ -185,6 +185,20 @@ def semantic_scan_from_ext(ext: projection.ExtractedCloud,
     lab_img = torch.where(src_ok, labels[idx], torch.zeros_like(labels[idx]))
     return _semantic_scan_from_grids(ext.xyz, ext.mask & src_ok, lab_img,
                                      cfg)
+
+
+def build_semantic_scan(scan, labels: torch.Tensor,
+                        cfg: SlamConfig) -> SemanticScan:
+    """keyframeInit + currentCloudInit from a raw scan (an
+    odometry.ScanInput): pretreat, project, attach `labels` (per raw
+    point learning-class ids) and split into the back end's feature sets.
+    The fused SLAM step takes `semantic_scan_from_ext` on the front end's
+    projection instead."""
+    pre = pretreatment.pretreat(scan.points, scan.valid, cfg.sensor)
+    _img, ext = projection.project_and_extract(
+        pre.points[..., :3], pre.points[..., 3], pre.ring, pre.rel_time,
+        pre.valid, cfg.sensor)
+    return semantic_scan_from_ext(ext, labels, cfg)
 
 
 def _icp_fallback(state: SemanticOdomState, sscan: SemanticScan,

@@ -14,6 +14,14 @@ Weights cross both ways: `load_jax_train_state` puts a JAX TrainState's
 params, batch_stats and Adam moments into the port's model and optimizer,
 and `to_variables` gives the trained model as the flax-layout tree that
 `SemanticSlam(rangenet_params=...)` (either package's) takes.
+
+`make_sharded_train_step` is the JAX package's dp x tp x space step over a
+parallel/mesh.py mesh: batch items over 'data', the output channels of the
+convolutions that mesh.shard_params_tp picks over 'model', the image width
+over 'space' (models/rangenet.forward_sharded). The loss is the global
+masked sum over the global max(sum(mask), 1); the gradients are summed
+over 'data' and 'space'; Adam runs on each rank's slice, which is the
+unsharded update (Adam is elementwise).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch.nn.functional as F
 
 from ..config import SemanticConfig
 from ..models import rangenet
+from ..parallel import mesh as pmesh
 from ..semantic import weights as W
 from ..utils import device as devices
 
@@ -93,3 +102,128 @@ def to_variables(model: rangenet.RangeNet, cfg: SemanticConfig) -> dict:
     """The model's weights and running statistics as a flax-layout tree
     ({'params', 'batch_stats'}, numpy float32)."""
     return W.from_torch_state(model.state_dict(), cfg)
+
+
+class StateSharding:
+    """Cuts a full model and its Adam state into this rank's shard, in
+    place (`__call__`), and gathers them back (`gather`), after which
+    load_jax_train_state and to_variables work on them. The BatchNorm
+    running statistics stay whole on every rank."""
+
+    def __init__(self, placements: dict[str, pmesh.Placement]):
+        self.placements = placements
+
+    def _each(self, model, opt, fn):
+        for name, p in model.named_parameters():
+            pl = self.placements[name]
+            if not pl.dims:
+                continue
+            p.data = fn(pl, p.data)
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in opt.state.get(p, {}):
+                    opt.state[p][key] = fn(pl, opt.state[p][key])
+
+    def __call__(self, model: rangenet.RangeNet, opt: torch.optim.Adam):
+        self._each(model, opt, lambda pl, x: pl(x).clone())
+        return model, opt
+
+    def gather(self, model: rangenet.RangeNet, opt: torch.optim.Adam):
+        self._each(model, opt, lambda pl, x: pl.gather(x))
+        return model, opt
+
+
+def make_sharded_train_step(model: rangenet.RangeNet,
+                            opt: torch.optim.Optimizer, mesh):
+    """(step, shard_state, batch_sh) for the whole `model` (before
+    shard_state cuts it) over `mesh`: step(images, labels, mask) takes
+    this rank's blocks (mesh.shard_images / shard_planes of the global
+    batch) and returns {"loss", "grad_norm"} of the global batch, the
+    same on every rank; shard_state is a StateSharding; batch_sh the
+    batch's placement over 'data'. Call it on every rank."""
+    placements, sharded = pmesh.shard_params_tp(dict(model.state_dict()),
+                                                mesh)
+    data, mdl, space = (pmesh.axis(mesh, n) for n in ("data", "model",
+                                                      "space"))
+    split = [bool(placements[n].dims) for n, _ in model.named_parameters()]
+
+    def train_step(images, labels, mask):
+        params = list(model.parameters())
+        opt.zero_grad(set_to_none=True)
+        logp = F.log_softmax(
+            rangenet.forward_sharded(model, images, mesh, sharded), dim=-1)
+        ce = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+        total = torch.where(mask, ce, torch.zeros_like(ce)).sum()
+        count = torch.clamp(pmesh.all_reduce(mask.sum(), data, space),
+                            min=1)
+        (total / count).backward()
+        grads = [p.grad for p in params]
+        flat = pmesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                                data, space)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+        sq = torch.stack(torch._foreach_norm(grads)) ** 2
+        on = torch.tensor(split, dtype=sq.dtype, device=sq.device)
+        grad_norm = torch.sqrt(pmesh.all_reduce((sq * on).sum(), mdl)
+                               + (sq * (1 - on)).sum())
+        loss = pmesh.all_reduce(total.detach().clone(), data, space) / count
+        opt.step()
+        return {"loss": loss, "grad_norm": grad_norm}
+
+    return train_step, StateSharding(placements), pmesh.shard_batch(mesh)
+
+
+def train_sharded(rank: int, world_mesh, cfg: SemanticConfig,
+                  variables: dict, images, labels, mask, lr: float = 1e-3,
+                  steps: int = 1, model_parallel: int = 1,
+                  spatial_parallel: int = 1) -> dict:
+    """One rank of `steps` sharded training steps (a parallel/mesh.spawn
+    function): the model from the flax-layout `variables` on
+    make_mesh(world, model_parallel, spatial_parallel), fed this rank's
+    blocks of the global batch (numpy or CPU tensors). Returns, the same
+    on every rank: the losses and grad norms, each step's ms (CUDA events
+    on a card, else the host clock), the last step's gradients (whole,
+    keyed as the state_dict), the trained variables (whole, flax layout)
+    and every rank's peak device memory (0 on the CPU)."""
+    import time
+
+    dev_type = world_mesh.device_type
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if dev_type == "cuda" else torch.device("cpu")
+    mesh = pmesh.make_mesh(None, model_parallel, spatial_parallel,
+                           device=dev_type)
+    model, opt = create_train_state(cfg, None, lr=lr, device=device,
+                                    variables=variables)
+    step, shard_state, _ = make_sharded_train_step(model, opt, mesh)
+    shard_state(model, opt)
+    img_sh, pl_sh = pmesh.shard_images(mesh), pmesh.shard_planes(mesh)
+    x = img_sh(torch.as_tensor(images)).to(device)
+    y = pl_sh(torch.as_tensor(labels)).to(device)
+    m = pl_sh(torch.as_tensor(mask)).to(device)
+    if dev_type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms = [], [], []
+    for _ in range(steps):
+        if dev_type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(x, y, m)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        else:
+            t = time.perf_counter()
+            out = step(x, y, m)
+            ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(float(out["loss"]))
+        norms.append(float(out["grad_norm"]))
+    peaks = [None] * world_mesh.size()
+    torch.distributed.all_gather_object(
+        peaks, torch.cuda.max_memory_allocated() if dev_type == "cuda" else 0)
+    grads = {n: shard_state.placements[n].gather(p.grad).cpu()
+             for n, p in model.named_parameters()}
+    shard_state.gather(model, opt)
+    return {"losses": losses, "grad_norms": norms, "step_ms": ms,
+            "grads": grads, "variables": to_variables(model, cfg),
+            "peak_bytes": peaks}

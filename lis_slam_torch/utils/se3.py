@@ -202,6 +202,52 @@ def quat_to_euler(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([roll, pitch, yaw], dim=-1)
 
 
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) [w,x,y,z] -> (..., 3, 3); a zero quaternion gives I."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = w * w + x * x + y * y + z * z
+    s = torch.where(n > 0, 2.0 / torch.clamp(n, min=1e-24),
+                    torch.zeros_like(n))
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return torch.stack([
+        torch.stack([1 - (yy + zz), xy - wz, xz + wy], dim=-1),
+        torch.stack([xy + wz, 1 - (xx + zz), yz - wx], dim=-1),
+        torch.stack([xz - wy, yz + wx, 1 - (xx + yy)], dim=-1),
+    ], dim=-2)
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 4) unit [w,x,y,z], branch-free Shepperd: the
+    candidate of the largest pivot of four."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def root(v):
+        return torch.sqrt(torch.clamp(1.0 + v, min=1e-12)) / 2.0
+
+    a, b, c, d = (root(tr), root(m00 - m11 - m22), root(-m00 + m11 - m22),
+                  root(-m00 - m11 + m22))
+    cands = torch.stack([
+        torch.stack([a, (m21 - m12) / (4 * a), (m02 - m20) / (4 * a),
+                     (m10 - m01) / (4 * a)], dim=-1),
+        torch.stack([(m21 - m12) / (4 * b), b, (m01 + m10) / (4 * b),
+                     (m02 + m20) / (4 * b)], dim=-1),
+        torch.stack([(m02 - m20) / (4 * c), (m01 + m10) / (4 * c), c,
+                     (m12 + m21) / (4 * c)], dim=-1),
+        torch.stack([(m10 - m01) / (4 * d), (m02 + m20) / (4 * d),
+                     (m12 + m21) / (4 * d), d], dim=-1)], dim=-2)
+    pivots = torch.stack([tr, m00 - m11 - m22, -m00 + m11 - m22,
+                          -m00 - m11 + m22], dim=-1)
+    idx = torch.argmax(pivots, dim=-1)
+    q = torch.take_along_dim(cands, idx[..., None, None].expand(
+        idx.shape + (1, 4)), dim=-2)[..., 0, :]
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
 def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t: float) -> torch.Tensor:
     """Slerp between (..., 4) [w,x,y,z] quaternions (tf::Quaternion::slerp)."""
     dot = torch.sum(q0 * q1, dim=-1, keepdim=True)

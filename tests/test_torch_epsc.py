@@ -10,6 +10,8 @@ per sector: XLA leaves the winner unspecified. `test_signature_duplicate_
 sector_winner` pins what the JAX package keeps on the CPU (the highest
 source index), which the port keeps deterministically on any device."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -162,3 +164,31 @@ def test_detector_gate_and_candidate_match():
     ct = tepsc.LoopDetector.result_to_candidate(ids, fetched)
     assert ct.matched_id == cj.matched_id == 9
     np.testing.assert_array_equal(ct.transform, cj.transform)
+
+
+def test_add_and_detect_matches(scene):
+    """add_and_detect over keyframes 0, 3, 50, 97 then the revisit 99 on
+    the plaza lap: the same candidates (matched id, score within
+    SCORE_ATOL, transform within 1e-3) as the JAX detector's, and a loop
+    at the revisit. Five keyframes travel ~60 m, so the gate's position
+    bound is widened to 5% of the travel (the default 1% is 0.6 m, and
+    the revisit is 0.63 m from keyframe 0)."""
+    gt, clouds = scene
+    jc = dataclasses.replace(JLoopCfg(), inflation_covariance=0.05)
+    tc = dataclasses.replace(LoopClosureConfig(), inflation_covariance=0.05)
+    jd, td = jepsc.LoopDetector(jc), tepsc.LoopDetector(tc)
+    for i in (0, 3, 50, 97, 99):
+        pose = np.array([gt[i, 3], gt[i, 4], gt[i, 2]])
+        cj = jd.add_and_detect(_desc(jepsc, clouds[i], jc, jnp.asarray), pose,
+                               jepsc.CloudRefs(*(jnp.asarray(a)
+                                                 for a in clouds[i])))
+        ct = td.add_and_detect(_desc(tepsc, clouds[i], tc, torch.from_numpy),
+                               pose, tepsc.CloudRefs(*(torch.from_numpy(a)
+                                                       for a in clouds[i])))
+        assert len(ct) == len(cj), i
+        for a, b in zip(ct, cj):
+            assert a.matched_id == b.matched_id
+            assert abs(a.score - b.score) <= SCORE_ATOL
+            np.testing.assert_allclose(a.transform, b.transform, atol=1e-3)
+    assert cj and ct, "the revisit produced no loop candidate"
+    assert len(td.poses) == 5

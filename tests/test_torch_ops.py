@@ -184,3 +184,33 @@ def test_compact_masked_matches():
         bt, mt = tvox.compact_masked(_t(pts), _t(mask), cap)
         _eq(mt, mj)
         _close(bt, bj, atol=0)
+
+
+@pytest.mark.parametrize("quant", [1.0, 0.5])
+def test_morton_sort_points_matches(stages, quant):
+    """morton_sort_points on a front end's surf cloud: the same order
+    (bit-equal points and mask) as the JAX package's."""
+    fc = stages[1][2]
+    pts, mask = np.asarray(fc.surf_xyz), np.asarray(fc.surf_mask)
+    pj, mj = jvox.morton_sort_points(jnp.asarray(pts), jnp.asarray(mask),
+                                     quant)
+    pt, mt = tvox.morton_sort_points(_t(pts), _t(mask), quant)
+    _eq(mt, mj)
+    _eq(pt, pj)
+    assert int(mt.sum()) > 1000 and not bool(mt[int(mt.sum()):].any())
+
+
+@pytest.mark.parametrize("leaf,cap", [(0.4, 2048), (1.2, 512), (0.4, 256)])
+def test_voxel_downsample_labeled_matches(stages, leaf, cap):
+    """Centroids within 1e-5 m (summed in another order), the voxels'
+    largest labels and the mask equal; the smallest capacity overflows."""
+    fc = stages[2][2]
+    pts, mask = np.asarray(fc.surf_xyz), np.asarray(fc.surf_mask)
+    lab = np.random.default_rng(3).integers(0, 20, len(pts)).astype(np.int32)
+    oj = jvox.voxel_downsample_labeled(jnp.asarray(pts), jnp.asarray(lab),
+                                       jnp.asarray(mask), leaf, cap)
+    ot = tvox.voxel_downsample_labeled(_t(pts), _t(lab), _t(mask), leaf, cap)
+    _eq(ot[2], oj[2])
+    _eq(ot[1], oj[1])
+    _close(ot[0], oj[0])
+    assert int(ot[2].sum()) > 200

@@ -128,3 +128,12 @@ def test_cg_solver_not_ported(solver, max_nodes):
     assert (np.linalg.norm(nt[-1][:3, 3] - truth[-1][:3, 3])
             < np.linalg.norm(est[-1][:3, 3] - truth[-1][:3, 3]))
     np.testing.assert_array_equal(np.stack(tb.nodes), nt)
+
+
+def test_empty_graph_matches():
+    gj = jpg.empty_graph(8, 16, 4)
+    gt = tpg.empty_graph(8, 16, 4)
+    for f in jpg.PoseGraph._fields:
+        np.testing.assert_array_equal(getattr(gt, f).numpy(),
+                                      np.asarray(getattr(gj, f)), err_msg=f)
+        assert getattr(gt, f).shape == getattr(gj, f).shape

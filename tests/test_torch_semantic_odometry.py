@@ -129,3 +129,20 @@ def test_sem_state_round_trip(jax_map):
     for f, a in arrays.items():
         assert back[f].dtype == a.dtype, f
         np.testing.assert_array_equal(back[f], a, err_msg=f)
+
+
+def test_build_semantic_scan_equal(jax_map):
+    """build_semantic_scan from a raw padded scan: every field equal to
+    the JAX package's (tests/test_semantic_odometry.py:46's call)."""
+    scans, _state, _guess = jax_map
+    jcfg, tcfg = tiny_cfgs()
+    s = scans[N_MAP - 1]
+    lab = _labels(s, jcfg)
+    sj = jsemo.build_semantic_scan(jdriver.pad_scan(s.points[s.valid], jcfg),
+                                   jnp.asarray(lab), jcfg)
+    st = tsemo.build_semantic_scan(driver.pad_scan(s.points[s.valid], tcfg),
+                                   torch.from_numpy(lab), tcfg)
+    for f in jsemo.SemanticScan._fields:
+        np.testing.assert_array_equal(getattr(st, f).numpy(),
+                                      np.asarray(getattr(sj, f)), err_msg=f)
+    assert int(st.corner_mask.sum()) > 10 and int(st.surf_mask.sum()) > 1000
