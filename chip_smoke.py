@@ -49,7 +49,11 @@ lines each):
               B = 8 (equal); aggregate scans/s at B = 1, 8, 32 beside
               replay_odometry's, peak memory, the step's device busy share;
               then K3 against its plain version on the normal equations
-              recorded during a step, and K1 / K2 at the batched shapes;
+              recorded during a step at B = 1, 8 and 32 (times, an empty
+              launch's, the wrapper's host ms at B = 8), and K1 / K2 at
+              the batched shapes; with --baseline, that checkout's
+              replay of the same lanes (final positions against this
+              one's), busy share and scans/s in turns;
   9. slam   - the full SLAM system (pipeline/slam.py SemanticSlam: front
               end, semantic refinement, submaps, EPSC loop closure, ICP
               verification, pose graph) on the JAX bench's plaza lap
@@ -117,7 +121,7 @@ lines each):
               sharing the card over gloo, 4 lanes a rank: lanes 0/1
               bit-equal, every lane within 5e-3 m of the unsharded replay
               and ATE < 0.1 m, K1/K2/K3 launched and counted on each rank,
-              a step without a host sync, K1/K2 against their plain
+              a step without a host sync, K1/K2/K3 against their plain
               versions at each rank's shapes (ranks in turn); (c)
               make_sharded_train_step at the full darknet53 width,
               64 x 2048 x 5, batch 2, the train phase's seeded weights and
@@ -131,20 +135,23 @@ lines each):
 
 Every kernel case (K1 at each path's shapes, K2's one launch per GN
 iteration at the front end's, the LIO path's, the refinement's, the
-batched replay's and each sharded rank's, K3 at the batched replay's) is
-timed four ways: device ms per call (torch.profiler's CUDA activities,
-summed: the kernel's own time), call ms (CUDA events around back-to-back
-calls: the host's pace where it is the slower), plain ms (its plain
-version on the card) and its bound (bytes moved once over 3.35 TB/s, or
-the operations these inputs need over 67 TFLOP/s fp32, the larger); K1
-also prints the share of map tiles it skipped. No single PyTorch call
+batched replay's and each sharded rank's, K3 at the batched replay's
+B = 1, 8, 32 and each sharded rank's) is timed four ways: device ms per
+call (torch.profiler's CUDA activities, summed: the kernel's own time),
+call ms (CUDA events around back-to-back calls: the host's pace where it
+is the slower), plain ms (its plain version on the card) and its bound
+(bytes moved once over 3.35 TB/s, or the operations these inputs need
+over 67 TFLOP/s float32 and 34 TFLOP/s float64, the larger); K1 also
+prints the share of map tiles it skipped, K3 an empty launch's device
+ms beside its bound (the practical floor). No single PyTorch call
 computes K1's or K2's function, so their library_ms is null with the
 reason; torch.cdist + torch.topk is timed beside K1 as information only.
 K3's library_ms is torch.linalg.eigh + torch.linalg.solve on the same
 (B, 6, 6) normal equations, part of its function.
 With --baseline DIR (another checkout, e.g. the parent commit unpacked)
 each case also times that checkout's kernels on the same inputs, in
-turns: baseline, this, this, baseline.
+turns: baseline, this, this, baseline; the batched phase also replays
+its lanes with that checkout and times its busy share and scans/s.
 
 Then one JSON line with each kernel's launches (in all, and per path;
 the sharded phase's per rank: sharded_w1_r0, sharded_w2_r0,
@@ -279,20 +286,25 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3):
 
 
 # The least time of a kernel's work on one H100 SXM (its published peak
-# rates: 3.35 TB/s HBM3, 67 TFLOP/s float32 outside the tensor cores;
-# rates at the full 700 W limit).
+# rates: 3.35 TB/s HBM3, 67 TFLOP/s float32 and 34 TFLOP/s float64
+# outside the tensor cores; rates at the full 700 W limit).
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 34e12
 
 
-def _bound(nbytes: float, flops: float, flops_basis: str):
+def _bound(nbytes: float, flops: float, flops_basis: str,
+           flops64: float = 0.0):
     """(bound_ms, bound_by, basis) from the bytes moved once and the
-    operations these inputs need."""
+    operations these inputs need: `flops` float32 at the float32 peak,
+    `flops64` float64 at the float64 peak."""
     t_b = nbytes / PEAK_BYTES_S * 1e3
-    t_o = flops / PEAK_FP32_FLOPS * 1e3
+    t_o = (flops / PEAK_FP32_FLOPS + flops64 / PEAK_FP64_FLOPS) * 1e3
+    ops = f"{flops:.0f} flop / 67 TFLOP/s"
+    if flops64:
+        ops += f" + {flops64:.0f} float64 flop / 34 TFLOP/s"
     basis = (f"bytes {nbytes:.0f} / 3.35 TB/s = {t_b * 1e3:.4f} us; "
-             f"{flops_basis} = {flops:.0f} flop / 67 TFLOP/s = "
-             f"{t_o * 1e3:.4f} us")
+             f"{flops_basis} = {ops} = {t_o * 1e3:.4f} us")
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), basis
 
 
@@ -350,7 +362,7 @@ K2_NO_LIBRARY = ("no single PyTorch call computes LOAM's per-query line / "
                  "plane fit reduced to H, g and n_valid")
 # per-shape timings of each kernel, filled by the phases
 CASES: dict[str, list] = {"K1": [], "K2": [], "K3": []}
-BASELINE = None  # (knn_cuda, gn_cuda) of --baseline's checkout
+BASELINE = None  # --baseline's checkout: pkg, knn_cuda, gn_cuda, gn_solve
 
 
 def _timed(kernel, tag, name, path, fn, plain, bound, base_fn=None,
@@ -401,6 +413,12 @@ def phase_device():
     return card
 
 
+def _ptxas_usage(report: str) -> str:
+    """The registers, stack and spill lines of an nvcc -Xptxas -v report."""
+    return " | ".join(ln.strip() for ln in report.splitlines()
+                      if "registers" in ln or "spill" in ln)
+
+
 def phase_build(out_dir: str) -> None:
     """Build every kernel's source at once (one nvcc each, in threads)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -422,10 +440,8 @@ def phase_build(out_dir: str) -> None:
         report = cuda_build.build_log(name, flags)
         with open(os.path.join(out_dir, f"build_{name}.log"), "w") as f:
             f.write(report)
-        usage = [ln.strip() for ln in report.splitlines()
-                 if "registers" in ln or "spill" in ln]
         log("build", f"{name}.cu built in {dt:.2f} s; ptxas: "
-            + " | ".join(usage))
+            + _ptxas_usage(report))
 
 
 def _build_inputs(scans, gt, cfg, dev):
@@ -497,7 +513,7 @@ def _check_knn(tag, name, q, ref, mask, k, cap, path):
             lambda: torch.topk(torch.cdist(q, valid), kk, largest=False),
             iters=5) if kk > 0 else None
     base = None if BASELINE is None else (
-        lambda: BASELINE[0].knn(q, ref, mask, k=k, max_sq_dist=cap))
+        lambda: BASELINE.knn_cuda.knn(q, ref, mask, k=k, max_sq_dist=cap))
     _timed("K1", tag, name, path,
            lambda: knn_cuda.knn(q, ref, mask, k=k, max_sq_dist=cap),
            lambda: knn_cuda.knn_plain(q, ref, mask, k=k, max_sq_dist=cap),
@@ -665,9 +681,9 @@ def _check_gn_pair(tag, label, path, corner, surf, cfg, pose, strict=True,
         return max(eh, eg)
     base = None
     if BASELINE is not None:
-        vec = getattr(BASELINE[1], "gn_iteration_vec", None)
+        vec = getattr(BASELINE.gn_cuda, "gn_iteration_vec", None)
         base = ((lambda: vec(*args)) if vec is not None
-                else lambda: _packed(*BASELINE[1].gn_iteration_hg(*args)))
+                else lambda: _packed(*BASELINE.gn_cuda.gn_iteration_hg(*args)))
     name = (f"corner Q{corner[0].shape[0]} + surf Q{surf[0].shape[0]} "
             f"k{k}")
     _timed("K2", tag, name, path, lambda: gn_cuda.gn_iteration_vec(*args),
@@ -869,20 +885,25 @@ def phase_main(scans, gt, cfg, dev, out_dir):
             runs["pallas"].poses)
 
 
-def _launches():
+def _pkg_mod(pkg, name):
+    """Module `name` (e.g. "ops.gn_solve") of this checkout's package, or
+    of the package named `pkg` (--baseline's)."""
+    import importlib
+
+    return importlib.import_module(f"{pkg or 'lis_slam_torch'}.{name}")
+
+
+def _launches(pkg=None):
     """(K1, K2, K3) launch counts."""
-    from lis_slam_torch.ops import gn_cuda, gn_solve, knn_cuda
+    return (_pkg_mod(pkg, "ops.knn_cuda").knn.launches,
+            _pkg_mod(pkg, "ops.gn_cuda").gn_iteration_vec.launches,
+            _pkg_mod(pkg, "ops.gn_solve").solve.launches)
 
-    return (knn_cuda.knn.launches, gn_cuda.gn_iteration_vec.launches,
-            gn_solve.solve.launches)
 
-
-def _zero_launches():
-    from lis_slam_torch.ops import gn_cuda, gn_solve, knn_cuda
-
-    knn_cuda.knn.launches = 0
-    gn_cuda.gn_iteration_vec.launches = 0
-    gn_solve.solve.launches = 0
+def _zero_launches(pkg=None):
+    _pkg_mod(pkg, "ops.knn_cuda").knn.launches = 0
+    _pkg_mod(pkg, "ops.gn_cuda").gn_iteration_vec.launches = 0
+    _pkg_mod(pkg, "ops.gn_solve").solve.launches = 0
 
 
 def _accuracy(tag, poses, gt):
@@ -2333,6 +2354,7 @@ BATCH_SCANS = 24
 BATCH_RATE_LANES = (1, 8, 32)
 BATCH_RATE_STEPS = 16  # timed steps per rate, after BATCH_RATE_WARMUP
 BATCH_RATE_WARMUP = 4
+BATCH_RATE_TURNS = 3  # with --baseline: turns of baseline, this, this, baseline
 BATCH_SINGLE_ATOL = 5e-3  # m, lane 0 (kf every scan) vs odom_step_uniform
 # K3 against its plain version on recorded normal equations
 K3_POSE_ATOL = 1e-5
@@ -2359,11 +2381,11 @@ def _batched_cfg(cfg, backend, kf_every=None):
     return c
 
 
-def _warm_lanes(scans, cfg, lanes, steps):
+def _warm_lanes(scans, cfg, lanes, steps, pkg=None):
     """States of `lanes` lanes after `steps` batched steps (on the
-    replay's cadence), and the stacked scans of the steps that follow."""
-    from lis_slam_torch.parallel import batched
-
+    replay's cadence), and the stacked scans of the steps that follow;
+    `pkg` names --baseline's package."""
+    batched = _pkg_mod(pkg, "parallel.batched")
     starts = _lane_starts(lanes, len(scans))
     stacked = [batched.stack_scans([scans[s + i] for s in starts])
                for i in range(BATCH_SCANS)]
@@ -2375,7 +2397,7 @@ def _warm_lanes(scans, cfg, lanes, steps):
     return states, stacked
 
 
-def _step_kernels(scans, cfg, lanes, windows=3):
+def _step_kernels(scans, cfg, lanes, windows=3, pkg=None):
     """One warm batched step (a keyframe-merge step) under torch.profiler,
     traced in `windows` windows; the window with the most CUDA activities
     is kept, since a trace can drop activities (once in a whole run on
@@ -2386,23 +2408,23 @@ def _step_kernels(scans, cfg, lanes, windows=3):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from lis_slam_torch.parallel import batched
 
+    batched = _pkg_mod(pkg, "parallel.batched")
     step = 2 * max(1, cfg.runtime.batched_kf_every)  # merges (i % K == 0)
-    states, stacked = _warm_lanes(scans, cfg, lanes, step)
+    states, stacked = _warm_lanes(scans, cfg, lanes, step, pkg)
     # a second warm step of the same kind, so the allocator has the sizes
     batched.batched_odom_step(states, stacked[step], cfg)
     torch.cuda.synchronize()
     best, totals = None, []
     for _ in range(windows):
-        _zero_launches()
+        _zero_launches(pkg)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             batched.batched_odom_step(states, stacked[step], cfg)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
-        launches = _launches()
+        launches = _launches(pkg)
         names: dict[str, int] = {}
         busy, ops = 0.0, 0
         for e in prof.events():
@@ -2418,15 +2440,15 @@ def _step_kernels(scans, cfg, lanes, windows=3):
     return (*best, totals)
 
 
-def _rate(scans, cfg, lanes):
+def _rate(scans, cfg, lanes, pkg=None):
     """Aggregate scans/s of `lanes` lanes over BATCH_RATE_STEPS batched
     steps on the replay's cadence, after BATCH_RATE_WARMUP, and the peak
     device memory of the run."""
     import torch
-    from lis_slam_torch.parallel import batched
 
+    batched = _pkg_mod(pkg, "parallel.batched")
     torch.cuda.reset_peak_memory_stats()
-    states, stacked = _warm_lanes(scans, cfg, lanes, BATCH_RATE_WARMUP)
+    states, stacked = _warm_lanes(scans, cfg, lanes, BATCH_RATE_WARMUP, pkg)
     kf_every = max(1, cfg.runtime.batched_kf_every)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2460,14 +2482,11 @@ def _check_no_syncs(scans, cfg):
     return 2
 
 
-def _record_k3(scans, cfg):
-    """The normal equations and lane states K3 was called with during one
-    warm batched step (B = BATCH_LANES), recorded through the module
-    attribute the solver calls."""
+def _record_k3(run):
+    """The normal equations and lane states K3 was called with during
+    run(), recorded through the module attribute the solver calls."""
     from lis_slam_torch.ops import gn_solve
-    from lis_slam_torch.parallel import batched
 
-    states, stacked = _warm_lanes(scans, cfg, BATCH_LANES, 3)
     calls, solve = [], gn_solve.solve
 
     def record(hg, st, c):
@@ -2477,30 +2496,120 @@ def _record_k3(scans, cfg):
     record.launches = solve.launches  # the K3 wrapper counts on this name
     gn_solve.solve = record
     try:
-        batched.batched_odom_step(states, stacked[3], cfg, allow_kf=False)
+        run()
     finally:
         gn_solve.solve = solve
         solve.launches = record.launches
+    return calls
+
+
+def _record_k3_lanes(scans, cfg, lanes):
+    """K3's calls during one warm merge-free batched step of `lanes` lanes
+    (the fourth), with the states and the scans of that step."""
+    from lis_slam_torch.parallel import batched
+
+    states, stacked = _warm_lanes(scans, cfg, lanes, 3)
+    calls = _record_k3(lambda: batched.batched_odom_step(
+        states, stacked[3], cfg, allow_kf=False))
     return calls, states, stacked[3]
 
 
-def _k3_bound(lanes: int):
-    """K3's bound for `lanes` lanes: hg (43 f32), the lane state in and
-    out (pose 6 + proj 36 f32, two bools, two int32, two f32) and the
-    rows (128 f32) each moved once; ~6 sweeps x 15 rotations x 80 flops of
-    the Jacobi per lane (an estimate) over the 67 TFLOP/s float32 peak
-    (the float64 rate is lower, so this bounds from below)."""
+# K3's work a lane: the host's sequence of 90 rotations, once a lane (the
+# kernel's threads recompute partial sums and the round's (c, s), which
+# the bound does not count): a rotation's (c, s) 30 float64 flops
+# (csrc/gn_solve.cu half_angle: x and y 3, x^2 + y^2 3, two reciprocal
+# square roots with their Newton step 8 each, r and r d 3, c and s 5),
+# its row stage, column stage and V update 12 values each at 3 flops;
+# float32: solve6 ~250, the projector 36 x 18, px 72, the norms 12; the
+# rows ~350 (3 sincos ~60, R ~20, six 3x3 products 270), also for a
+# frozen lane and the rows-only launch
+K3_F64_SOLVE = 90 * (30 + 3 * 12 * 3)
+K3_F32_SOLVE = 250 + 36 * 18 + 72 + 12
+K3_F32_ROWS = 350
+K3_RATE_LANES = (1, 8, 32)  # the batched rate lanes
+K3_HOST_CALLS = 200
+
+
+def _k3_bound(st):
+    """K3's bound for one launch on the lane state st: hg (43 f32) of the
+    lanes still active, the lane state in and out (pose 6 + proj 36 f32,
+    two bools, two int32, two f32) and the rows (128 f32) each moved
+    once; K3_F64_SOLVE over the float64 peak and K3_F32_SOLVE over the
+    float32 peak for each active lane, K3_F32_ROWS for every lane."""
+    lanes = st.pose.shape[0]
+    active = int((~st.converged).sum())
     state = 4 * (6 + 36) + 2 + 4 * 2 + 4 * 2
-    nbytes = lanes * (43 * 4 + 2 * state + 128 * 4)
-    return _bound(nbytes, lanes * 6 * 15 * 80,
-                  "~6 x 15 x 80 (estimated) x lanes")
+    nbytes = active * 43 * 4 + lanes * (2 * state + 128 * 4)
+    return _bound(nbytes, active * K3_F32_SOLVE + lanes * K3_F32_ROWS,
+                  f"{active} active of {lanes} lanes", active * K3_F64_SOLVE)
 
 
-def _check_k3(calls, cfg):
+def _empty_launch_ms():
+    """Device ms of one empty kernel launch (torch.cuda._sleep(0): a
+    kernel that spins 0 cycles), by the same profiler count as the
+    kernels: the practical floor of a launch on this card."""
+    import torch
+
+    return device_ms(lambda: torch.cuda._sleep(0))[0]
+
+
+def _k3_host_ms(hg, st, cfg):
+    """Host ms of one K3 call, host clock over K3_HOST_CALLS back-to-back
+    calls with no sync inside (the device keeps up: its time is a fraction
+    of the host's): the whole wrapper; its output allocation alone
+    (gn_solve._outputs, nine tensors); the same outputs as views of one
+    float32 and one bool allocation (the trim considered); its ctypes
+    call with lanes = 0 (argument marshalling, no launch)."""
+    import torch
+    from lis_slam_torch.ops import cuda_build, gn_solve
+
+    out, rows = gn_solve._outputs(st)
+    m, dev = cfg, st.pose.device
+    args = [hg.data_ptr(), *(t.data_ptr() for t in st),
+            *(t.data_ptr() for t in out), rows.data_ptr(), 0, 1,
+            m.degeneracy_eigen_threshold, m.min_valid_points,
+            m.converge_delta_r_deg, m.converge_delta_t_cm, m.nn_max_sq_dist,
+            m.residual_damping, m.min_residual_weight, m.eigen_ratio_line,
+            m.plane_fit_tolerance]
+
+    def no_launch():
+        cuda_build.check(gn_solve._lib().lis_gn_solve(
+            *args, cuda_build.stream_ptr(dev)), "gn_solve")
+
+    def flat_outputs():  # the same outputs as views of two allocations
+        b = st.pose.shape[0]
+        f = torch.empty(b * 174, dtype=torch.float32, device=dev)
+        flags = torch.empty(2 * b, dtype=torch.bool, device=dev)
+        rows_, pose, proj, n_valid, it, d_r, d_t = torch.split(
+            f, [128 * b, 6 * b, 36 * b, b, b, b, b])
+        return (rows_.view(b, 2, 64), pose.view(b, 6), proj.view(b, 6, 6),
+                flags[:b], flags[b:], n_valid.view(torch.int32),
+                it.view(torch.int32), d_r, d_t)
+
+    res = {}
+    for key, fn in (("host_ms", lambda: gn_solve.solve(hg, st, cfg)),
+                    ("host_alloc_ms", lambda: gn_solve._outputs(st)),
+                    ("host_alloc_flat_ms", flat_outputs),
+                    ("host_ctypes_no_launch_ms", no_launch)):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(K3_HOST_CALLS):
+            fn()
+        res[key] = (time.perf_counter() - t) / K3_HOST_CALLS * 1e3
+        torch.cuda.synchronize()
+    return res
+
+
+def _check_k3(calls, cfg, path, host=False):
     """K3 against its plain version on every recorded call: flags and it
     equal, pose within K3_POSE_ATOL, proj within K3_PROJ_ATOL. Then its
-    times at the batched shape (CASES["K3"]), with torch.linalg.eigh +
-    torch.linalg.solve on the same (B, 6, 6) as the library pair."""
+    times on the middle call (CASES["K3"]; with --baseline, the baseline
+    checkout's K3 on the same inputs in turns), with torch.linalg.eigh +
+    torch.linalg.solve on the same (B, 6, 6) as the library pair, an
+    empty launch's device ms beside it, and with `host` the wrapper's
+    host ms (_k3_host_ms). Returns the largest pose error."""
     import torch
     from lis_slam_torch.ops import gn_solve
 
@@ -2521,10 +2630,11 @@ def _check_k3(calls, cfg):
         err = max(err, e_pose)
     hg, st = calls[len(calls) // 2]
     lanes = hg.shape[0]
-    log("K3", f"{len(calls)} recorded calls at B {lanes}: flags and it "
-        f"equal, max |pose - plain| {err:.3g}, proj err {e_proj:.3g}, rows "
-        f"err {e_rows:.3g}; degenerate lanes "
-        f"{int(ref.degenerate.sum())}, converged {int(ref.converged.sum())}")
+    log("K3", f"{path}: {len(calls)} recorded calls at B {lanes}: flags "
+        f"and it equal, max |pose - plain| {err:.3g}, proj err "
+        f"{e_proj:.3g}, rows err {e_rows:.3g}; degenerate lanes "
+        f"{int(ref.degenerate.sum())}, converged {int(ref.converged.sum())} "
+        "after the last")
     H = hg[:, :36].reshape(-1, 6, 6)
     g = hg[:, 36:42]
 
@@ -2532,13 +2642,21 @@ def _check_k3(calls, cfg):
         torch.linalg.eigh(H)
         torch.linalg.solve(H, g)
 
-    case = _timed("K3", "K3", f"B{lanes} (43 + state)", "batched",
+    base = None if BASELINE is None else (
+        lambda: BASELINE.gn_solve.solve(hg, st, cfg.matching))
+    extra = dict(active_lanes=int((~st.converged).sum()),
+                 empty_launch_ms=_empty_launch_ms())
+    if host:
+        extra.update(_k3_host_ms(hg, st, cfg.matching))
+    case = _timed("K3", "K3", f"B{lanes} (43 + state)", path,
                   lambda: gn_solve.solve(hg, st, cfg.matching),
                   lambda: gn_solve.solve_plain(hg, st, cfg.matching),
-                  _k3_bound(lanes), library_none_reason=None)
+                  _k3_bound(st), base_fn=base, library_none_reason=None,
+                  **extra)
     case["library_ms"] = call_ms(library)
     case["library_what"] = "torch.linalg.eigh + torch.linalg.solve (B, 6, 6)"
-    log("K3", f"library pair eigh + solve: {case['library_ms']:.4f} ms")
+    log("K3", f"{path} B{lanes}: library pair eigh + solve "
+        f"{case['library_ms']:.4f} ms")
     return err
 
 
@@ -2691,6 +2809,9 @@ def phase_batched(scans, gt, cfg, dev, out_dir):
             f"{counts[f'batched_{backend}'][2]}")
         check(max(ates) < ATE_MAX, f"batched {backend}: ATE {max(ates)}")
         results[backend] = dict(poses=poses.tolist(), ate=ates)
+        if BASELINE is not None:
+            results[backend]["baseline"] = _baseline_lanes(seqs, c, dev,
+                                                           poses, backend)
     k1, k2, k3 = counts["batched_pallas"]
     check(k1 > 0 and k2 > 0 and k3 > 0
           and counts["batched_xla"][0] > 0 and counts["batched_xla"][1] == 0
@@ -2733,17 +2854,25 @@ def phase_batched(scans, gt, cfg, dev, out_dir):
         f"(B {BATCH_LANES}, a merge step and a merge-free step) under "
         f"torch.cuda.set_sync_debug_mode('error')")
 
-    per_b = {}
+    per_b, busy_b = {}, {}
     for lanes in (1, BATCH_LANES):
         names, launches, busy, wall, ops, totals = _step_kernels(
             scans, cp, lanes)
         per_b[lanes] = (names, launches)
+        busy_b[lanes] = dict(busy_ms=busy, wall_ms=wall)
         log("batched", f"B {lanes}: one merge step launches K1 "
             f"{launches[0]}, K2 {launches[1]}, K3 {launches[2]}, CUDA "
             f"activities {sum(names.values())} ({len(names)} kinds; "
             f"traced windows {totals}), aten ops {ops}; device busy "
             f"{busy:.3f} ms of {wall:.3f} ms wall ({busy / wall:.3f} busy "
             "share, profiler on)")
+        if BASELINE is not None:
+            _n, l_b, busy, wall, _o, _t = _step_kernels(
+                scans, cp, lanes, pkg=BASELINE.pkg)
+            busy_b[lanes].update(baseline_busy_ms=busy, baseline_wall_ms=wall)
+            log("batched", f"B {lanes} baseline: one merge step launches "
+                f"K1/K2/K3 {l_b}; device busy {busy:.3f} ms of {wall:.3f} "
+                f"ms wall ({busy / wall:.3f} busy share, profiler on)")
     (n1, l1), (n8, l8) = per_b[1], per_b[BATCH_LANES]
     diff = {k: (n1.get(k, 0), n8.get(k, 0)) for k in set(n1) | set(n8)
             if n1.get(k, 0) != n8.get(k, 0)}
@@ -2757,8 +2886,26 @@ def phase_batched(scans, gt, cfg, dev, out_dir):
 
     rates = {}
     for lanes in BATCH_RATE_LANES:
-        rates[lanes] = _rate(scans, cp, lanes)
+        if BASELINE is None:
+            rates[lanes] = _rate(scans, cp, lanes)
+        else:  # in turns, BATCH_RATE_TURNS times: baseline, this, this,
+            # baseline (the host is shared: one turn's pairs vary by 15%)
+            runs, base_runs, peak = [], [], 0
+            for _ in range(BATCH_RATE_TURNS):
+                base_runs.append(_rate(scans, cp, lanes, BASELINE.pkg)[0])
+                for _ in range(2):
+                    rate, mem = _rate(scans, cp, lanes)
+                    runs.append(rate)
+                    peak = max(peak, mem)
+                base_runs.append(_rate(scans, cp, lanes, BASELINE.pkg)[0])
+            rates[lanes] = (float(np.median(runs)), peak,
+                            dict(runs=runs, baseline_runs=base_runs))
+            log("batched", f"B {lanes} baseline: "
+                f"{float(np.median(base_runs)):.3f} aggregate scans/s "
+                f"(median; runs {[round(r, 3) for r in base_runs]}); this "
+                f"checkout's runs {[round(r, 3) for r in runs]}")
         log("batched", f"B {lanes}: {rates[lanes][0]:.3f} aggregate scans/s "
+            f"{'(median) ' if BASELINE is not None else ''}"
             f"({BATCH_RATE_STEPS} steps on the kf-every-"
             f"{cp.runtime.batched_kf_every} cadence), peak device memory "
             f"{rates[lanes][1]} bytes")
@@ -2769,18 +2916,47 @@ def phase_batched(scans, gt, cfg, dev, out_dir):
         f"replay_odometry = "
         f"{rates[BATCH_LANES][0] / res_rate.scans_per_sec:.3f}")
 
-    calls, states, scan_b = _record_k3(scans, cp)
-    k3_err = _check_k3(calls, cfg)
-    _check_batched_kernels(states, scan_b, cp)
+    # K3 on the normal equations of a warm step at each rate's lanes
+    k3_err = 0.0
+    for lanes in K3_RATE_LANES:
+        calls, states, scan_b = _record_k3_lanes(scans, cp, lanes)
+        k3_err = max(k3_err, _check_k3(calls, cfg, "batched",
+                                       host=lanes == BATCH_LANES))
+        if lanes == BATCH_LANES:
+            _check_batched_kernels(states, scan_b, cp)
     with open(os.path.join(out_dir, "batched.json"), "w") as f:
         json.dump(dict(results=results, single_gap_m=gap,
                        ate_uniform=ate_uni, ate_odom_step=ate_step,
                        rates={str(b): r for b, r in rates.items()},
+                       busy={str(b): v for b, v in busy_b.items()},
                        replay_odometry_scans_per_sec=res_rate.scans_per_sec,
                        kernels_per_step={str(b): dict(names=v[0],
                                                       launches=v[1])
                                          for b, v in per_b.items()}), f)
     return counts, k3_err
+
+
+def _baseline_lanes(seqs, cfg, dev, poses, backend):
+    """--baseline's replay_batched of the same lanes and config: each
+    lane's final position against this checkout's (m), the largest
+    |pose difference| over the run, the baseline's wall s."""
+    import torch
+
+    batched = _pkg_mod(BASELINE.pkg, "parallel.batched")
+    scan_type = _pkg_mod(BASELINE.pkg, "pipeline.odometry").ScanInput
+    seqs = [[scan_type(*s) for s in seq] for seq in seqs]  # its own type
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    base = batched.replay_batched(seqs, cfg, device=dev)
+    wall = time.perf_counter() - t
+    final = np.linalg.norm(poses[:, -1, 3:] - base[:, -1, 3:], axis=1)
+    res = dict(final_gap_m=final.tolist(),
+               max_pose_diff=float(np.abs(poses - base).max()), wall_s=wall)
+    log("batched", f"gn_backend={backend}: baseline replay in {wall:.3f} s; "
+        f"final position per lane vs this checkout (m) "
+        f"{[float(f'{x:.3g}') for x in final]}, max |pose difference| over "
+        f"the run {res['max_pose_diff']:.3g}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2975,8 +3151,11 @@ def _shard_rank(rank, mesh, clouds, cfg):
     errs = None
     for r in range(world):
         if r == rank:
-            errs = _check_batched_kernels(states, stacked[3], cfg,
-                                          path=f"sharded w{world} r{rank}")
+            path = f"sharded w{world} r{rank}"
+            errs = _check_batched_kernels(states, stacked[3], cfg, path=path)
+            calls = _record_k3(lambda: step(states, stacked[3],
+                                            allow_kf=False))
+            _check_k3(calls, cfg, path)
         if world > 1:
             dist.barrier()
     every = [None] * world
@@ -2987,7 +3166,7 @@ def _shard_rank(rank, mesh, clouds, cfg):
     out["launches"] = [c for c, _e in every]
     out["k2_err"] = max(e for _c, e in every)
     out["cases"] = {k: [c for c in CASES[k] if c["path"].startswith(
-        "sharded")] for k in ("K1", "K2")}
+        "sharded")] for k in ("K1", "K2", "K3")}
     del scans, seqs, stacked, states
     torch.cuda.empty_cache()
 
@@ -3127,19 +3306,20 @@ def phase_sharded(clouds, gt, cfg, dev, out_dir):
     launches.update({f"sharded_w{SHARD_RANKS}_r{r}": tuple(c)
                      for r, c in enumerate(w2["launches"])})
     for res in (w1, w2):
-        for k in ("K1", "K2"):
+        for k in ("K1", "K2", "K3"):
             CASES[k].extend(res["cases"][k])
     return launches, max(w1["k2_err"], w2["k2_err"])
 
 
-def _load_baseline(root: str):
-    """(knn_cuda, gn_cuda) of the lis_slam_torch package under `root`,
-    imported under another name so both checkouts live in one process;
-    its kernels build into its own _build directory."""
+def _load_baseline(root: str, name: str = "lis_slam_torch_baseline"):
+    """The lis_slam_torch package under `root`, imported as `name` so both
+    checkouts live in one process, with its K1/K2/K3 built into its own
+    _build directory: a namespace of pkg (the name), knn_cuda, gn_cuda,
+    gn_solve, cuda_build and usage (its K3's ptxas lines)."""
     import importlib
     import importlib.util
+    import types
 
-    name = "lis_slam_torch_baseline"
     pkg = os.path.join(os.path.abspath(root), "lis_slam_torch")
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(pkg, "__init__.py"),
@@ -3147,14 +3327,19 @@ def _load_baseline(root: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    knn_b = importlib.import_module(f"{name}.ops.knn_cuda")
-    gn_b = importlib.import_module(f"{name}.ops.gn_cuda")
+    base = types.SimpleNamespace(pkg=name, **{
+        m: importlib.import_module(f"{name}.ops.{m}")
+        for m in ("knn_cuda", "gn_cuda", "gn_solve", "cuda_build")})
     t = time.perf_counter()
-    knn_b._lib()
-    gn_b._lib()
-    log("build", f"baseline {root}: K1/K2 built in "
-        f"{time.perf_counter() - t:.2f} s")
-    return knn_b, gn_b
+    base.knn_cuda._lib()
+    base.gn_cuda._lib()
+    base.gn_solve._lib()
+    base.usage = _ptxas_usage(base.cuda_build.build_log(
+        "gn_solve", base.gn_solve._FLAGS))
+    log("build", f"baseline {root}: K1/K2/K3 built in "
+        f"{time.perf_counter() - t:.2f} s; its gn_solve.cu ptxas: "
+        + base.usage)
+    return base
 
 
 def main() -> int:
@@ -3164,9 +3349,10 @@ def main() -> int:
                     help="directory for build logs and per-scan results")
     ap.add_argument("--baseline", default=None,
                     help="root of another checkout (e.g. the parent commit, "
-                         "unpacked): its K1/K2 are built from there and "
+                         "unpacked): its K1/K2/K3 are built from there and "
                          "timed in turns with this checkout's on the same "
-                         "inputs")
+                         "inputs, and its batched replay is run beside "
+                         "this one's")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     try:

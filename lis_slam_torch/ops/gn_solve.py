@@ -10,7 +10,11 @@ counts only active iterations). No Pallas kernel: the JAX package leaves
 this to XLA. Here it is one launch per GN iteration for every lane: the
 kernel is CUDA C++ in csrc/gn_solve.cu (see its header for what bounds it
 and how its design answers), because the 90 Jacobi rotations as tensor
-ops cost ~1,300 launches (utils/lin.py:jacobi_eigh6_batched).
+ops cost ~1,300 launches (utils/lin.py:jacobi_eigh6_batched). K3 rotates
+the Jacobi pairs in round-robin rounds of three disjoint pairs, so its
+plain version does too (utils/lin.py:jacobi_eigh6_rounds): the same
+eigenvalues as the JAX package's cyclic order, to float32 rounding
+(tests/test_torch_gn_solve.py).
 
 K3 also writes each lane's next (2, 64) scalar rows for kernel K2 (the
 layout of gn_cuda.pack_scalars: rotation, translation, the three rotation
@@ -31,7 +35,7 @@ import functools
 import torch
 
 from ..config import MatchingConfig
-from ..utils import se3
+from ..utils import lin, se3
 from . import cuda_build, scan_match
 
 _FLAGS = ("--fmad=false",)  # products round as the plain version's do
@@ -82,8 +86,9 @@ def solve_plain(hg: torch.Tensor, st: scan_match.GNState,
                 cfg: MatchingConfig):
     """The plain version of K3: per lane, scan_match.gn_solve_from_hg on
     the packed normal equations hg (B, 43) = [H (6x6 row-major), g (6),
-    n_valid], then the scheduled loop's masked update. Returns (next
-    GNState, its (B, 2, 64) scalar rows), on hg's device."""
+    n_valid] with K3's Jacobi order (lin.jacobi_eigh6_rounds), then the
+    scheduled loop's masked update. Returns (next GNState, its (B, 2, 64)
+    scalar rows), on hg's device."""
     dev = hg.device
     hg_h = hg.detach().cpu()
     old = [getattr(st, f).detach().cpu() for f, _t, _s in _STATE]
@@ -94,7 +99,7 @@ def solve_plain(hg: torch.Tensor, st: scan_match.GNState,
         pose, proj, degen, conv, n_valid, d_r, d_t = (
             scan_match.gn_solve_from_hg(
                 old[0][b], hg_h[b, :36].reshape(6, 6), hg_h[b, 36:42],
-                int(hg_h[b, 42]), cfg))
+                int(hg_h[b, 42]), cfg, eigh=lin.jacobi_eigh6_rounds))
         for i, v in enumerate((pose, proj, degen, conv, n_valid,
                                int(old[5][b]) + 1, d_r, d_t)):
             new[i][b] = v
@@ -120,6 +125,15 @@ def _check_state(st: scan_match.GNState, b: int, dev) -> None:
                              f"{dtype} {(b,) + shape}, contiguous, on {dev}")
 
 
+def _outputs(st: scan_match.GNState):
+    """The next state and its (B, 2, 64) scalar rows, uninitialised, on
+    st's device (the kernel reads st and writes these)."""
+    out = scan_match.GNState(*(torch.empty_like(t) for t in st))
+    rows = torch.empty((st.pose.shape[0], 2, 64), dtype=torch.float32,
+                       device=st.pose.device)
+    return out, rows
+
+
 def _launch(hg, st: scan_match.GNState, cfg: MatchingConfig,
             do_solve: bool):
     b, dev = st.pose.shape[0], st.pose.device
@@ -128,8 +142,7 @@ def _launch(hg, st: scan_match.GNState, cfg: MatchingConfig,
                            or hg.device != dev or not hg.is_contiguous()):
         raise ValueError("gn_solve: hg must be float32 (B, 43), contiguous, "
                          "on the state's device")
-    out = scan_match.GNState(*(torch.empty_like(t) for t in st))
-    rows = torch.empty((b, 2, 64), dtype=torch.float32, device=dev)
+    out, rows = _outputs(st)
     err = _lib().lis_gn_solve(
         None if hg is None else hg.data_ptr(),
         *(t.data_ptr() for t in st), *(t.data_ptr() for t in out),

@@ -138,14 +138,17 @@ def normal_equations(M: torch.Tensor, pts_sensor: torch.Tensor,
 
 
 def gn_solve_from_hg(pose: torch.Tensor, H: torch.Tensor, g: torch.Tensor,
-                     n_valid: int, cfg: MatchingConfig):
+                     n_valid: int, cfg: MatchingConfig,
+                     eigh=lin.jacobi_eigh6):
     """Solve + degeneracy clamp + convergence test on host (CPU) normal
-    equations. Returns (new_pose, proj, degenerate, converged, n_valid,
-    delta_r, delta_t)."""
+    equations, the eigendecomposition by `eigh` (the JAX package's cyclic
+    Jacobi; kernel K3's plain version passes its round-robin one).
+    Returns (new_pose, proj, degenerate, converged, n_valid, delta_r,
+    delta_t)."""
     x = lin.solve6_spd(H + 1e-9 * torch.eye(6), g)
     # degeneracy analysis every iteration (the reference only at iteration
     # 0; identical in structurally degenerate scenes)
-    evals, evecs = lin.jacobi_eigh6(H)
+    evals, evecs = eigh(H)
     keep = (evals >= cfg.degeneracy_eigen_threshold).to(H.dtype)
     proj = evecs @ torch.diag(keep) @ evecs.T
     degenerate = bool(torch.any(keep < 0.5))

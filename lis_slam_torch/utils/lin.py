@@ -110,7 +110,8 @@ def jacobi_eigh6_batched(H: torch.Tensor, sweeps: int = 6
     """jacobi_eigh6 over leading dims as float64 tensor ops: the same
     rotations in the same order on every (6, 6) of H (..., 6, 6), rounded
     to H's dtype. ~1,300 small ops, so a plain version for tests and
-    comparisons, not a hot path (kernel K3 runs it on the card)."""
+    comparisons, not a hot path (kernel K3 runs the round-robin order of
+    jacobi_eigh6_rounds on the card)."""
     A = H.detach().double().clone()
     V = torch.eye(6, dtype=A.dtype, device=A.device).expand(A.shape).clone()
     for _ in range(sweeps):
@@ -131,6 +132,81 @@ def jacobi_eigh6_batched(H: torch.Tensor, sweeps: int = 6
     return torch.take_along_dim(evals, order, dim=-1), vecs
 
 
+# The 15 pairs of a sweep as 5 rounds of 3 disjoint pairs (the circle
+# method's round-robin), the order kernel K3 rotates in (csrc/gn_solve.cu)
+ROUNDS6 = (((0, 5), (1, 4), (2, 3)), ((0, 4), (3, 5), (1, 2)),
+           ((0, 3), (2, 4), (1, 5)), ((0, 2), (1, 3), (4, 5)),
+           ((0, 1), (2, 5), (3, 4)))
+
+
+def givens_half_angle(x: torch.Tensor, y: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos t, sin t) of t = atan2(y, x) / 2, t in (-pi/2, pi/2], without
+    a transcendental: r = sqrt(x^2 + y^2), d = r + |x|, q = 1 / sqrt(2 r d);
+    for x >= 0, (d q, y q); for x < 0, (|y| q, d q with y's sign), so
+    neither branch cancels, and atan2's own branch holds at y = +-0, x < 0
+    (+-pi / 2). The formula of kernel K3's rotations (csrc/gn_solve.cu
+    half_angle), elementwise on float64 tensors."""
+    r = torch.sqrt(x * x + y * y)
+    d = r + torch.abs(x)
+    q = torch.rsqrt(2.0 * r * d)
+    big, small = d * q, y * q
+    pos = x >= 0
+    c = torch.where(pos, big, torch.abs(small))
+    s = torch.where(pos, small, torch.copysign(big, y))
+    # r = 0: atan2(+-0, +0) = +-0, atan2(+-0, -0) = +-pi
+    neg = torch.signbit(x)
+    zero = r == 0
+    c = torch.where(zero, (~neg).to(x.dtype), c)
+    s = torch.where(zero, torch.where(neg, torch.copysign(torch.ones_like(y),
+                                                          y), y), s)
+    return c, s
+
+
+def _rotate_host(A: list, V: list, p: int, q: int, c: float, s: float):
+    """One Jacobi rotation of the pair (p, q) on nested lists, in place:
+    rows p, q of A, then columns p, q of A, then columns p, q of V."""
+    rp, rq = A[p], A[q]
+    A[p] = [c * a + s * b for a, b in zip(rp, rq)]
+    A[q] = [c * b - s * a for a, b in zip(rp, rq)]
+    for M in (A, V):
+        for row in M:
+            a, b = row[p], row[q]
+            row[p], row[q] = c * a + s * b, c * b - s * a
+
+
+def _jacobi_host(H: torch.Tensor, rounds, sweeps: int):
+    """Jacobi rotations of one symmetric 6x6 on the host in float64, the
+    pairs of each round in turn (a round: one or more pairs), each with
+    the angle 0.5 atan2(2 a_pq, a_pp - a_qq + 1e-30); rounded to H's
+    dtype, the eigenvalues ascending (stable) and V's columns in their
+    order, on H's device."""
+    A = H.detach().cpu().double().tolist()
+    V = [[1.0 if i == j else 0.0 for j in range(6)] for i in range(6)]
+    for _ in range(sweeps):
+        for rnd in rounds:
+            for p, q in rnd:
+                theta = 0.5 * math.atan2(2.0 * A[p][q],
+                                         A[p][p] - A[q][q] + 1e-30)
+                _rotate_host(A, V, p, q, math.cos(theta), math.sin(theta))
+    evals = torch.tensor([A[i][i] for i in range(6)], dtype=H.dtype)
+    order = torch.argsort(evals, stable=True)
+    vecs = torch.tensor(V, dtype=H.dtype)[:, order]
+    return evals[order].to(H.device), vecs.to(H.device)
+
+
+def jacobi_eigh6_rounds(H: torch.Tensor, sweeps: int = 6
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """jacobi_eigh6 in kernel K3's order: each sweep's 15 pairs as the 5
+    rounds of ROUNDS6, a round's three rotations applied one after the
+    other in its order (disjoint pairs: none changes another's angle, so
+    the kernel rotates the three at once). The plain version of K3's
+    eigendecomposition (ops/gn_solve.py:solve_plain); the angle from
+    atan2 as the JAX package takes it, which K3's half-angle (c, s)
+    (givens_half_angle) reproduces."""
+    return _jacobi_host(H, ROUNDS6, sweeps)
+
+
 def jacobi_eigh6(H: torch.Tensor, sweeps: int = 6
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Eigendecomposition of one symmetric 6x6 by cyclic Jacobi rotations,
@@ -143,23 +219,7 @@ def jacobi_eigh6(H: torch.Tensor, sweeps: int = 6
     per-op overhead on a CPU and more as CUDA launches, against ~0.5 ms
     here. Double precision makes the result at least as accurate as the
     float32 JAX version; it is rounded to H's dtype on return."""
-    A = H.detach().cpu().double().tolist()
-    V = [[1.0 if i == j else 0.0 for j in range(6)] for i in range(6)]
-    for _ in range(sweeps):
-        for p, q in _PAIRS6:
-            theta = 0.5 * math.atan2(2.0 * A[p][q], A[p][p] - A[q][q] + 1e-30)
-            c, s = math.cos(theta), math.sin(theta)
-            rp, rq = A[p], A[q]
-            A[p] = [c * a + s * b for a, b in zip(rp, rq)]
-            A[q] = [c * b - s * a for a, b in zip(rp, rq)]
-            for M in (A, V):
-                for row in M:
-                    a, b = row[p], row[q]
-                    row[p], row[q] = c * a + s * b, c * b - s * a
-    evals = torch.tensor([A[i][i] for i in range(6)], dtype=H.dtype)
-    order = torch.argsort(evals, stable=True)
-    vecs = torch.tensor(V, dtype=H.dtype)[:, order]
-    return evals[order].to(H.device), vecs.to(H.device)
+    return _jacobi_host(H, [[pq] for pq in _PAIRS6], sweeps)
 
 
 def solve_plane_lsq(pts5: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -446,29 +446,49 @@ def test_gn_kernel_lanes_bit_equal(dev, lanes):
                                        atol=1e-6)
 
 
-def test_gn_solve_kernel_matches_plain(dev):
-    """K3 against its plain version on random normal equations (a
-    degenerate lane, a lane with too few rows, frozen lanes): flags and
-    `it` equal, pose within 1e-5, proj within 1e-4, scalar rows within
-    1e-5; the rows-only launch equals the plain rows."""
+def _k3_lanes(b, seed=5):
+    """Packed normal equations (b, 43) and start poses for K3, lane i of
+    kind (i + 4) % 5: 0 well conditioned, 1 degenerate (one direction
+    1e-3 as stiff), 2 converged before the call (frozen), 3 under
+    min_valid_points, 4 an eigenvalue 5e-4 relative above the degeneracy
+    threshold and one 5e-4 below it (B = 1 is that lane)."""
+    r = np.random.default_rng(seed)
+    hg, kinds = [], [(i + 4) % 5 for i in range(b)]
+    for kind in kinds:
+        J = r.normal(0, 1, (300, 6)) * np.float64([3, 3, 3, 20, 20, 20])
+        if kind == 1:
+            J[:, 5] *= 1e-3
+        H = J.T @ J
+        if kind == 4:
+            Qm, _ = np.linalg.qr(r.normal(size=(6, 6)))
+            e = np.float64([100 * (1 - 5e-4), 100 * (1 + 5e-4), 900, 3e3,
+                            2e4, 9e4])
+            H = (Qm * e) @ Qm.T
+        g = r.normal(0, 5e-3 if kind % 2 else 50, 6)
+        hg.append(np.concatenate([H.reshape(-1), g,
+                                  [30 if kind == 3 else 300]]))
+    pose0 = r.normal(0, 0.1, (b, 6))
+    return (np.stack(hg).astype(np.float32), pose0.astype(np.float32),
+            np.asarray(kinds))
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 8, 32])
+def test_gn_solve_kernel_matches_plain(dev, lanes):
+    """K3 against its plain version at B = 1, 3, 8 and 32 (ragged blocks
+    of 4 lanes): flags and `it` equal, pose within 1e-5, proj within 1e-4,
+    scalar rows within 1e-5, on lanes well conditioned, degenerate,
+    frozen (converged before the call), under min_valid_points and with
+    eigenvalues within 1e-3 relative of the threshold; the rows-only
+    launch (solve = 0) equals the plain rows."""
     from lis_slam_torch.ops import gn_solve
 
     cfg = SlamConfig().matching
-    r = np.random.default_rng(5)
-    hg, b = [], 16
-    for i in range(b):
-        J = r.normal(0, 1, (300, 6)) * np.float64([3, 3, 3, 20, 20, 20])
-        if i % 3 == 1:
-            J[:, 5] *= 1e-3
-        H = (J.T @ J).astype(np.float32)
-        g = r.normal(0, 5e-3 if i % 2 else 50, 6).astype(np.float32)
-        hg.append(np.concatenate([H.reshape(-1), g,
-                                  [30 if i % 4 == 3 else 300]]))
-    hg = torch.from_numpy(np.stack(hg).astype(np.float32)).to(dev)
-    pose0 = torch.from_numpy(r.normal(0, 0.1, (b, 6)).astype(np.float32))
-    st = gn_solve.init_state(pose0.to(dev))
-    st = st._replace(converged=torch.arange(b, device=dev) % 5 == 2,
-                     it=torch.full((b,), 2, dtype=torch.int32, device=dev))
+    hg, pose0, kinds = _k3_lanes(lanes)
+    hg = torch.from_numpy(hg).to(dev)
+    st = gn_solve.init_state(torch.from_numpy(pose0).to(dev))
+    frozen = torch.from_numpy(kinds == 2).to(dev)
+    st = st._replace(converged=frozen, it=torch.full(
+        (lanes,), 2, dtype=torch.int32, device=dev))
     before = gn_solve.solve.launches
     new, rows = gn_solve.solve(hg, st, cfg)
     ref, ref_rows = gn_solve.solve_plain(hg, st, cfg)
@@ -482,7 +502,19 @@ def test_gn_solve_kernel_matches_plain(dev):
     for f in ("delta_r", "delta_t"):
         torch.testing.assert_close(getattr(new, f), getattr(ref, f),
                                    rtol=1e-4, atol=1e-6)
-    assert bool(new.degenerate[4]) and bool(new.converged[7])
-    torch.testing.assert_close(gn_solve.scalar_rows(new, cfg),
+    for i, kind in enumerate(kinds.tolist()):
+        if kind in (1, 4):  # an eigenvalue under the threshold
+            assert bool(new.degenerate[i]), i
+        if kind == 2:  # frozen: the state passes through, it not counted
+            assert torch.equal(new.pose[i], st.pose[i]) and int(new.it[i]) == 2
+        else:
+            assert int(new.it[i]) == 3, i
+        if kind == 3:  # too few rows: no step, converged
+            assert bool(new.converged[i]) and torch.equal(new.pose[i],
+                                                          st.pose[i])
+    before = gn_solve.solve.launches
+    only_rows = gn_solve.scalar_rows(new, cfg)
+    assert gn_solve.solve.launches == before + 1
+    torch.testing.assert_close(only_rows,
                                gn_solve.scalar_rows_plain(new.pose, cfg),
                                rtol=0, atol=1e-5)

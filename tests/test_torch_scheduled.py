@@ -206,9 +206,10 @@ def _normal_equations(seed, n_lanes):
 
 
 def test_gn_solve_plain_matches_per_lane_solve():
-    """K3's plain version: per lane gn_solve_from_hg then the masked
-    update; a converged lane stays frozen (only `it` of an active lane
-    moves), and its scalar rows are pack_scalars' for the new pose."""
+    """K3's plain version: per lane gn_solve_from_hg (with K3's Jacobi
+    order, lin.jacobi_eigh6_rounds) then the masked update; a converged
+    lane stays frozen (only `it` of an active lane moves), and its scalar
+    rows are pack_scalars' for the new pose."""
     from lis_slam_torch.ops import gn_cuda
 
     cfg = SlamConfig().matching
@@ -227,7 +228,8 @@ def test_gn_solve_plain_matches_per_lane_solve():
             continue
         pose, proj, degen, conv, n_valid, d_r, d_t = (
             scan_match.gn_solve_from_hg(pose0[i], hg[i, :36].reshape(6, 6),
-                                        hg[i, 36:42], int(hg[i, 42]), cfg))
+                                        hg[i, 36:42], int(hg[i, 42]), cfg,
+                                        eigh=lin.jacobi_eigh6_rounds))
         assert torch.equal(new.pose[i], pose) and torch.equal(new.proj[i],
                                                                proj)
         assert (bool(new.degenerate[i]), bool(new.converged[i])) == (degen,
