@@ -3,9 +3,10 @@
 
 Drives the port's front-end odometry step, its LiDAR-inertial path, the
 batched multi-sequence replay, the full SLAM system, the KITTI-replay CLI,
-checkpoint/resume, NDT, RangeNet training and the multi-device layer, with
-the three hand-written CUDA kernels, through these phases (one or more
-lines each):
+checkpoint/resume, NDT, RangeNet training, the multi-device layer, the
+unfused projection pair and the synthetic RangeNet recipe, with the three
+hand-written CUDA kernels, through these phases (one or more lines each;
+projection runs after K2, recipe last):
 
   1. device - torch and CUDA versions, the card's name and power limit;
   2. build  - nvcc builds csrc/knn.cu (K1, exact kNN), csrc/gn.cu (K2,
@@ -132,6 +133,27 @@ lines each):
               leaf's largest), then five bf16 steps (the loss falls; ms a
               step, peak memory per rank); (d) the port's
               dryrun_multichip(4) over gloo (data 1 x model 2 x space 2).
+ 18. projection - ops/projection.py project + extract (the unfused pair)
+              on a full HDL-64 plaza scan (64 x 1800, P = 115200) with its
+              labels in the rel_time channel: the card against the host
+              on the same pretreated points, bit-equal outside the pixels
+              of the points whose column the card's float32 atan2 moves
+              (counted, at most 1e-4 of the valid points); the card's
+              fused project_and_extract against its
+              pair (masks, counts, columns equal; ranges within 0.02 m);
+              ms a call of both (CUDA events).
+ 19. recipe - the synthetic RangeNet recipe (train/recipe.py, the JAX
+              script scripts/train_rangenet_synthetic.py's): 88 labelled
+              64 x 1824 images rendered on the card, 2500 steps of the
+              slim net on 512-wide crops, batch 8, bf16, warm-up + cosine
+              Adam with a global-norm clip: render s, ms a step, the loss
+              every 100 steps (finite, falling), peak memory, held-out
+              mIoU (>= 0.95) beside the shipped checkpoint's; the
+              checkpoint written and read back (load_checkpoint), its
+              per-point label accuracy on a plaza scan (> 0.8), and the
+              slam lap with SemanticSlam(rangenet_params=...) labelling
+              every keyframe (the slam_infer bar, >= 1 loop factor,
+              K1/K2 launched).
 
 Every kernel case (K1 at each path's shapes, K2's one launch per GN
 iteration at the front end's, the LIO path's, the refinement's, the
@@ -2346,6 +2368,231 @@ def phase_train(dev, out_dir):
 
 
 # ---------------------------------------------------------------------------
+# projection: the unfused pair; recipe: the slim checkpoint retrained
+# ---------------------------------------------------------------------------
+
+PROJ_FUSED_ATOL = 0.02  # m, fused vs pair (tests/test_frontend_ops.py:300)
+# points a scan whose column the card's atan2 may move, as a share of the
+# valid points: ~25% of them get another last bit, of which ~7e-5 lie
+# that close to a half column (~2 expected of 112k; 1 measured)
+PROJ_MOVED_MAX = 1e-4
+RECIPE_STEPS = 2500  # the shipped slim checkpoint's meta "steps"
+RECIPE_BATCH = 8
+RECIPE_LR = 2e-3
+RECIPE_MIOU_MIN = 0.95  # held-out mIoU of the retrained checkpoint
+
+
+def _moved_pixels(pre_d, pre_c, ok, h):
+    """(raw indices, pixel set) of the in-grid points whose column the
+    card and the host compute differently: the card's float32 atan2 is
+    not the host's in the last bit for ~25% of points, which moves a
+    point that lies on a half column into the next one."""
+    from lis_slam_torch.ops import projection
+
+    col_d = projection.pixel_columns(pre_d.points[:, :3], h).cpu()
+    col_c = projection.pixel_columns(pre_c.points[:, :3], h)
+    moved = (ok & (col_d != col_c)).nonzero()[:, 0]
+    ring = pre_c.ring[moved]
+    pixels = {(int(r), int(c) % h) for r, c in zip(ring, col_d[moved])}
+    pixels |= {(int(r), int(c) % h) for r, c in zip(ring, col_c[moved])}
+    return moved, pixels
+
+
+def phase_projection(dev, out_dir):
+    """The unfused projection pair (ops/projection.py project + extract)
+    on a full HDL-64 plaza scan (64 x 1800, P = 115200) with its labels in
+    the rel_time channel, as the recipe projects: the card against the
+    host on the same pretreated points (bit-equal outside the pixels of
+    points whose column the two devices' atan2 puts apart, which are
+    counted), the card's fused project_and_extract against the card's
+    pair (masks, counts and columns equal, ranges within
+    PROJ_FUSED_ATOL), and ms a call of both (CUDA events)."""
+    import torch
+    from lis_slam_torch.config import SensorConfig, SlamConfig
+    from lis_slam_torch.ops import pretreatment, projection
+
+    cfg = SlamConfig().replace(
+        sensor=SensorConfig(max_raw_points=64 * 1800)).sensor
+    n, h = cfg.n_scan, cfg.horizon_scan
+    pts, lab, valid = _plaza_scan(dev, h, 29)
+    check(pts.shape[0] == n * h, f"projection: {pts.shape[0]} points")
+    pre_d = pretreatment.pretreat(pts, valid, cfg)
+    pre_c = pretreatment.PretreatedCloud(*(t.cpu() for t in pre_d))
+    args_d = (pre_d.points[:, :3], pre_d.points[:, 3], pre_d.ring,
+              lab.to(torch.float32), pre_d.valid)
+    args_c = tuple(a.cpu() for a in args_d)
+    img_d = projection.project(*args_d, cfg)
+    ext_d = projection.extract(img_d)
+    img_c = projection.project(*args_c, cfg)
+    ext_c = projection.extract(img_c)
+    ok = pre_c.valid & (pre_c.ring >= 0) & (pre_c.ring < n)
+    moved, pixels = _moved_pixels(pre_d, pre_c, ok, h)
+    check(moved.numel() <= PROJ_MOVED_MAX * int(valid.sum()),
+          f"projection: the card moves {moved.numel()} points' columns")
+    spared = torch.ones((n, h), dtype=torch.bool)
+    for r, c in pixels:
+        spared[r, c] = False
+    rows = spared.all(dim=1)
+    diff_img = {f: int((getattr(img_d, f).cpu() != getattr(img_c, f))
+                       .reshape(n, h, -1).any(-1).sum())
+                for f in img_c._fields}
+    for f in img_c._fields:
+        a, b = getattr(img_d, f).cpu(), getattr(img_c, f)
+        check(torch.equal(a[spared], b[spared]),
+              f"projection: image {f} differs card vs host outside the "
+              f"{len(pixels)} pixels of moved points")
+    for f in ext_c._fields:
+        a, b = getattr(ext_d, f).cpu(), getattr(ext_c, f)
+        if a.dim() == 1:
+            a, b = a[:, None], b[:, None]
+        check(torch.equal(a[rows], b[rows]),
+              f"projection: extract {f} differs card vs host outside "
+              f"the rows of moved points")
+    check(bool((ext_c.src == -1).all()), "projection: extract src not -1")
+    mask = img_d.mask
+    check(int(mask.sum()) > 10000 and not bool(mask[1::2].any()),
+          f"projection: {int(mask.sum())} pixels or an odd row filled")
+    img_f, ext_f = projection.project_and_extract(*args_d, cfg,
+                                                  want_image=True)
+    gap = float((img_f.rng - img_d.rng)[mask].abs().max())
+    gap_ext = float((ext_f.rng - ext_d.rng)[ext_d.mask].abs().max())
+    same = {"mask": torch.equal(img_f.mask, mask),
+            "count": torch.equal(ext_f.count, ext_d.count),
+            "col": torch.equal(ext_f.col, ext_d.col)}
+
+    def pair():
+        return projection.extract(projection.project(*args_d, cfg))
+
+    def fused():
+        return projection.project_and_extract(*args_d, cfg, want_image=True)
+
+    pair_ms, fused_ms = call_ms(pair, iters=50), call_ms(fused, iters=50)
+    log("projection", f"project + extract on a {n} x {h} scan "
+        f"({int(valid.sum())} of {pts.shape[0]} points valid, "
+        f"{int(mask.sum())} pixels filled): card vs host bit-equal outside "
+        f"{len(pixels)} pixels of {moved.numel()} points whose column the "
+        f"card's atan2 moves (pixels differing by field: "
+        f"{json.dumps(diff_img)}; extract rows compared {int(rows.sum())} "
+        f"of {n}); fused vs pair on the card: mask/count/col equal "
+        f"{json.dumps(same)}, range gap image {gap:.6f} m, extracted "
+        f"{gap_ext:.6f} m (limit {PROJ_FUSED_ATOL}); ms a call (CUDA "
+        f"events): pair {pair_ms:.4f}, fused {fused_ms:.4f}")
+    with open(os.path.join(out_dir, "projection.json"), "w") as f:
+        json.dump({"moved_points": moved.tolist(), "moved_pixels":
+                   sorted(pixels), "pixels_differing": diff_img,
+                   "fused_same": same, "fused_rng_gap_m": gap,
+                   "fused_ext_rng_gap_m": gap_ext, "pair_ms": pair_ms,
+                   "fused_ms": fused_ms}, f)
+    check(all(same.values()), f"projection: fused vs pair {same}")
+    check(max(gap, gap_ext) < PROJ_FUSED_ATOL,
+          f"projection: fused vs pair range gap {gap} / {gap_ext}")
+
+
+def phase_recipe(dev, out_dir):
+    """The synthetic RangeNet recipe (train/recipe.py) at full width: the
+    88-image dataset rendered on the card, RECIPE_STEPS steps of the slim
+    net on 512-wide crops, batch 8, bf16, the held-out mIoU beside the
+    shipped checkpoint's; the checkpoint written and read back, its
+    per-point accuracy on a plaza scan, and the plaza lap with labels
+    inferred by it (SemanticSlam(rangenet_params=...), the lap rendered
+    anew), held to the slam_infer phase's bar."""
+    import dataclasses
+
+    import torch
+    from lis_slam_torch.config import SensorConfig, SlamConfig
+    from lis_slam_torch.config import slim_semantic_config
+    from lis_slam_torch.pipeline import trajectory
+    from lis_slam_torch.semantic import inference, weights
+    from lis_slam_torch.train import recipe
+
+    shipped = json.loads(str(np.load(weights.DEFAULT_CHECKPOINT)
+                             ["__meta__"]))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    data = recipe.render_dataset(device=dev)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t
+    check(tuple(data.images.shape) == (88, 64, recipe.H_PAD, 5),
+          f"recipe: dataset {tuple(data.images.shape)}")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = recipe.train(RECIPE_STEPS, batch=RECIPE_BATCH, lr=RECIPE_LR,
+                       data=data, device=dev)
+    total_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    losses = list(res.losses.values())
+    step_ms = 1e3 * res.seconds / RECIPE_STEPS
+    log("recipe", f"dataset {tuple(data.images.shape)} rendered on the card "
+        f"in {render_s:.3f} s; {RECIPE_STEPS} steps of the slim net "
+        f"(batch {RECIPE_BATCH} x 64 x {recipe.CROP_W}, bf16) in "
+        f"{res.seconds:.3f} s = {step_ms:.3f} ms a step (host clock, "
+        f"synced), {total_s:.3f} s with the held-out eval; peak device "
+        f"memory {peak} bytes; held-out mIoU "
+        f"{res.miou:.4f} (limit >= {RECIPE_MIOU_MIN}; the shipped "
+        f"checkpoint's {shipped['miou_synthetic']:.4f} after "
+        f"{shipped['steps']} steps of the JAX script), per class "
+        f"{json.dumps(res.per_class)}")
+    log("recipe", "loss every 100 steps: " + json.dumps(
+        {k: round(v, 5) for k, v in res.losses.items()}))
+    path = os.path.join(out_dir, "recipe_slim.npz")
+    weights.save_checkpoint(path, res.variables, slim_semantic_config(),
+                            meta={"miou_synthetic": res.miou,
+                                  "steps": RECIPE_STEPS})
+    sem, variables = weights.load_checkpoint(path)
+    del data
+    # the checkpoint per raw point of a plaza scan (phase_semantic's)
+    cfg = SlamConfig().replace(sensor=SensorConfig(max_raw_points=64 * 1800))
+    pts, lab_gt, valid = _plaza_scan(dev, 1800, 13)
+    model = inference.SemanticInference(cfg, checkpoint=path, device=dev)
+    lab, _ = model(pts, valid)
+    m = valid & (lab > 0)
+    acc = float((lab[m] == lab_gt[m].to(lab.dtype)).float().mean())
+    # the plaza lap, labels inferred on every keyframe by it
+    base = _slam_cfg()
+    seq, gt, _ = _render_plaza(base, dev)
+    cfg = base.replace(semantic=dataclasses.replace(sem, enabled=True))
+    _slam_run(cfg, seq[:SLAM_WARMUP], dev, "recipe", labels=False,
+              rangenet_params=variables)
+    system, res_slam, sps, counts, lap_peak = _slam_run(
+        cfg, seq, dev, "recipe", labels=False, rangenet_params=variables)
+    gt_rel = trajectory.relative_to_first(gt)
+    ate = trajectory.ate_rmse(res_slam.poses, gt_rel, align=True)
+    raw = trajectory.ate_rmse(res_slam.raw_poses, gt_rel, align=True)
+    jx = JAX_SLAM_INFER
+    bar = 1.5 * jx["ate_corrected_m"] + 0.02
+    log("recipe", f"checkpoint written ({os.path.getsize(path)} bytes) and "
+        f"read back: per-point label accuracy {acc:.4f} on {int(m.sum())} "
+        f"labelled plaza points (limit > {SEM_ACC_MIN}); SemanticSlam "
+        f"with rangenet_params on the plaza lap: {sps:.3f} scans/s, ATE "
+        f"aligned corrected {ate:.4f} m, raw {raw:.4f} m (limit {bar:.4f}, "
+        f"the slam_infer bar), submaps {res_slam.n_submaps}, loop factors "
+        f"{res_slam.n_loops}, keyframes {len(system.keyframes)}; K1 "
+        f"launches {counts[0]}, K2 launches {counts[1]}; peak device "
+        f"memory {lap_peak} bytes")
+    with open(os.path.join(out_dir, "recipe.json"), "w") as f:
+        json.dump({"render_s": render_s, "train_s": res.seconds,
+                   "step_ms": step_ms,
+                   "total_s": total_s, "peak_bytes": peak,
+                   "losses": res.losses, "miou": res.miou,
+                   "per_class": res.per_class, "shipped": shipped,
+                   "label_accuracy": acc, "ate_corrected_m": ate,
+                   "ate_raw_m": raw, "scans_per_s": sps,
+                   "n_submaps": res_slam.n_submaps,
+                   "loop_factors": res_slam.n_loops,
+                   "keyframes": len(system.keyframes),
+                   "launches": counts}, f)
+    check(bool(np.isfinite(losses).all()), f"recipe: loss {losses}")
+    check(np.mean(losses[-5:]) < 0.5 * losses[0],
+          f"recipe: the loss did not fall ({losses})")
+    check(res.miou >= RECIPE_MIOU_MIN, f"recipe: held-out mIoU {res.miou}")
+    check(acc > SEM_ACC_MIN, f"recipe: label accuracy {acc}")
+    check(res_slam.n_loops >= 1, "recipe: no loop factor")
+    check(ate <= bar, f"recipe: corrected ATE {ate} > {bar}")
+    check(counts[0] > 0 and counts[1] > 0, f"recipe: launches {counts}")
+    return {"recipe": counts}
+
+
+# ---------------------------------------------------------------------------
 # batched: multi-sequence replay through the uniform step (K1 + K2 + K3)
 # ---------------------------------------------------------------------------
 
@@ -3397,6 +3644,8 @@ def main() -> int:
         phase = "K2"
         k2 = phase_k2(inp, cfg, dev)
         del inp
+        phase = "projection"
+        phase_projection(dev, args.out)
         phase = "main"
         launches, vec_poses = phase_main(scans, gt, cfg, dev, args.out)
         phase = "lio"
@@ -3439,6 +3688,10 @@ def main() -> int:
                                                    args.out)
         launches.update(sharded_launches)
         k2 = max(k2, k2_shard)
+        # last: after ~5 million launches of the recipe's training, this
+        # process's later torch.profiler windows lost K2's device records
+        phase = "recipe"
+        launches.update(phase_recipe(dev, args.out))
         with open(os.path.join(args.out, "kernel_cases.json"), "w") as f:
             json.dump({"card": card, "cases": CASES}, f, indent=1)
     except BaseException as e:  # any failure: report and exit nonzero

@@ -1,10 +1,13 @@
-"""Range-image projection fused with per-ring compaction (port of
-lis_slam_tpu/ops/projection.py:project_and_extract; reference
-src/core/laserProcessing.cpp projectPointCloud :467-510 + cloudExtraction
-:515-539).
+"""Range-image projection and per-ring compaction (port of
+lis_slam_tpu/ops/projection.py; reference src/core/laserProcessing.cpp
+projectPointCloud :467-510 + cloudExtraction :515-539).
 
-On pixel collisions the NEAREST point (min quantized range, then lowest raw
-index) wins, as in the JAX package.
+`project_and_extract` is the production path, one sort for both steps: on
+pixel collisions the NEAREST point (min quantized range, then lowest raw
+index) wins, as in the JAX package. `project` + `extract` are the unfused
+pair, the JAX package's reference, which the RangeNet training recipe
+(train/recipe.py) projects its labelled scans with: there the nearest
+exact range wins, and among equal ranges the highest raw index.
 """
 
 from __future__ import annotations
@@ -44,24 +47,48 @@ class ExtractedCloud(NamedTuple):
     src: torch.Tensor  # (N, H) raw-point index of each slot, -1 padded
 
 
+def _f32(x: float) -> float:
+    """`x` rounded to the nearest float32."""
+    return torch.tensor(x, dtype=torch.float32).item()
+
+
+_DEG = _f32(180.0 / math.pi)
+
+
 def pixel_columns(points: torch.Tensor, h: int) -> torch.Tensor:
     """(..., P) int32 range-image column of each point (projectPointCloud's
-    horizon angle); may fall outside [0, h) for degenerate points."""
-    horizon_angle = torch.atan2(points[..., 0], points[..., 1]) * (
-        180.0 / math.pi)
-    col = (-torch.round((horizon_angle - 90.0) / (360.0 / h))).to(torch.int32)
-    col = col + h // 2
+    horizon angle); may fall outside [0, h) for degenerate points.
+
+    Rounded as the JAX package's CPU program computes
+    round((atan2(x, y) * 180 / pi - 90) / (360 / h)): XLA turns the
+    division into a product with the float32 reciprocal and fuses the
+    degree conversion and the - 90 into one multiply-add (emulated in
+    float64, where the float32 product is exact). The plain expression
+    puts a point lying on a half column into the other column (3 of a
+    64 x 1800 scan's points)."""
+    ang = torch.atan2(points[..., 0], points[..., 1])
+    shifted = (ang.double() * _DEG - 90.0).float()
+    col = -torch.round(shifted * _f32(1.0 / _f32(360.0 / h)))
+    col = col.to(torch.int32) + h // 2
     return torch.where(col >= h, col - h, col)
+
+
+def norm_fma(p: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm of the last axis of (..., 3) rounded as the JAX
+    package's CPU program rounds jnp.linalg.norm: sum_sq3's fused
+    multiply-adds, then a correctly rounded square root (float64, then
+    float32; torch's float32 sqrt on the CPU is not always correctly
+    rounded). norm3's plain sum differs in the last bit for ~7% of a
+    scan's points."""
+    return torch.sqrt(sum_sq3(p).double()).float()
 
 
 def range_image(ext: ExtractedCloud,
                 time: torch.Tensor | None = None) -> RangeImage:
     """The (N_SCAN, H) grid image of the compacted winners: each slot goes
     back to its pixel (row, col). `time` is the slots' relative time (N, H)
-    (zeros without it; RangeNet does not read it). The range is rounded as
-    the JAX package's CPU program rounds it (fused multiply-adds, a
-    correctly rounded square root, which torch's float32 sqrt on the CPU
-    is not always), so RangeNet's input matches it bit for bit; the
+    (zeros without it; RangeNet does not read it). The range is norm_fma,
+    so RangeNet's input matches the JAX package's bit for bit; the
     projection's sort key keeps norm3."""
     n, h = ext.mask.shape
     rows = torch.arange(n, device=ext.mask.device)[:, None].expand(n, h)
@@ -78,7 +105,7 @@ def range_image(ext: ExtractedCloud,
     hit = torch.zeros(n * h + 1, dtype=torch.bool, device=payload.device)
     hit[dest] = True
     hit = hit[: n * h]
-    rng = torch.sqrt(sum_sq3(grid[:, :3]).double()).float()
+    rng = norm_fma(grid[:, :3])
     return RangeImage(
         rng=torch.where(hit, rng, torch.full_like(rng, _INVALID_RANGE))
         .reshape(n, h),
@@ -86,6 +113,87 @@ def range_image(ext: ExtractedCloud,
         intensity=grid[:, 3].reshape(n, h),
         time=grid[:, 4].reshape(n, h),
         mask=hit.reshape(n, h))
+
+
+def _in_grid(points, ring, valid, rng, cfg: SensorConfig):
+    """(ok, column) of each point: valid, in the range gate, on a kept
+    ring and a column of the grid."""
+    n, h = cfg.n_scan, cfg.horizon_scan
+    ok = valid & (rng >= cfg.lidar_min_range) & (rng <= cfg.lidar_max_range)
+    ok &= (ring >= 0) & (ring < n)
+    if cfg.downsample_rate > 1:
+        ok &= ring % cfg.downsample_rate == 0
+    col = pixel_columns(points, h)
+    return ok & (col >= 0) & (col < h), col
+
+
+def project(points: torch.Tensor, intensity: torch.Tensor,
+            ring: torch.Tensor, rel_time: torch.Tensor, valid: torch.Tensor,
+            cfg: SensorConfig) -> RangeImage:
+    """Scatter one scan's (P, 3) points into the (N_SCAN, H) range image,
+    nearest range wins, in two passes as the JAX package's `project`:
+    each pixel's minimum range (scatter_reduce "amin"), then the payload
+    (xyz, intensity, rel_time) of its winner, one gather.
+
+    The range is norm_fma, JAX's jnp.linalg.norm bit for bit; the image
+    and its payload are exact (the recipe rounds labels back out of
+    rel_time). Among winners of equal range the highest raw index wins:
+    JAX writes them all with one colliding scatter-set and its CPU
+    program keeps the last write, where a colliding write on CUDA keeps
+    an arbitrary one; here an "amax" of the winners' raw indices picks
+    each pixel's source first."""
+    n, h = cfg.n_scan, cfg.horizon_scan
+    dev = points.device
+    rng = norm_fma(points)
+    ok, col = _in_grid(points, ring, valid, rng, cfg)
+    spill = torch.full_like(col, n * h, dtype=torch.int64)
+    flat = torch.where(ok, ring * h + col, spill)
+    rng = torch.where(ok, rng, torch.full_like(rng, _INVALID_RANGE))
+    best = torch.full((n * h + 1,), _INVALID_RANGE, dtype=torch.float32,
+                      device=dev).scatter_reduce_(0, flat, rng, "amin")
+    winner = ok & (rng <= best[flat])
+    src = torch.full((n * h + 1,), -1, dtype=torch.int64,
+                     device=dev).scatter_reduce_(
+        0, torch.where(winner, flat, spill),
+        torch.arange(points.shape[0], device=dev), "amax")[: n * h]
+    payload = torch.cat([points, intensity[:, None], rel_time[:, None]],
+                        dim=1)
+    img = torch.where((src >= 0)[:, None], payload[src.clamp(min=0)],
+                      torch.zeros((), dtype=payload.dtype, device=dev))
+    rng_img = best[: n * h].reshape(n, h)
+    return RangeImage(rng=rng_img, xyz=img[:, :3].reshape(n, h, 3),
+                      intensity=img[:, 3].reshape(n, h),
+                      time=img[:, 4].reshape(n, h),
+                      mask=rng_img < _INVALID_RANGE * 0.5)
+
+
+def extract(img: RangeImage) -> ExtractedCloud:
+    """Per-row stable compaction of an image's valid pixels
+    (cloudExtraction): slot = the pixel's rank among its row's valid
+    pixels, so column order holds; one scatter with unique destinations.
+    Empty slots get range _INVALID_RANGE and column -1; `src` is all -1
+    (the raw indices are not known here)."""
+    n, h = img.rng.shape
+    dev = img.rng.device
+    valid = img.mask
+    pos = torch.cumsum(valid.to(torch.int64), dim=1) - 1
+    rows = torch.arange(n, device=dev)[:, None]
+    cols = torch.arange(h, device=dev).expand(n, h)
+    dest = torch.where(valid, rows * h + pos, torch.full_like(pos, n * h))
+    payload = torch.cat([img.rng[..., None], img.xyz,
+                         img.intensity[..., None],
+                         cols[..., None].to(torch.float32)], dim=-1)
+    buf = scatter_front(dest.reshape(1, -1), payload.reshape(1, n * h, 6),
+                        n * h)[0].reshape(n, h, 6)
+    count = valid.sum(dim=1, dtype=torch.int32)
+    mask = torch.arange(h, device=dev) < count[:, None]
+    none = torch.full((n, h), -1, dtype=torch.int32, device=dev)
+    return ExtractedCloud(
+        rng=torch.where(mask, buf[..., 0],
+                        torch.full_like(buf[..., 0], _INVALID_RANGE)),
+        xyz=buf[..., 1:4], intensity=buf[..., 4],
+        col=torch.where(mask, buf[..., 5].to(torch.int32), none),
+        count=count, mask=mask, src=none)
 
 
 def project_and_extract(points: torch.Tensor, intensity: torch.Tensor,
@@ -121,12 +229,7 @@ def _project_lanes(points, intensity, ring, rel_time, valid,
     n, h = cfg.n_scan, cfg.horizon_scan
     dev = points.device
     rng = norm3(points)
-    ok = valid & (rng >= cfg.lidar_min_range) & (rng <= cfg.lidar_max_range)
-    ok &= (ring >= 0) & (ring < n)
-    if cfg.downsample_rate > 1:
-        ok &= ring % cfg.downsample_rate == 0
-    col = pixel_columns(points, h)
-    ok &= (col >= 0) & (col < h)
+    ok, col = _in_grid(points, ring, valid, rng, cfg)
 
     pix = ring * h + col
     rq = torch.clamp(rng * (16383.0 / max(cfg.lidar_max_range, 1e-3)),

@@ -10,6 +10,12 @@ when cfg.fp16), BatchNorm in float32 with flax's train-mode statistics
 L2 norm. The convolutions are cuDNN calls: the JAX package has no Pallas
 kernel on RangeNet.
 
+The synthetic-world recipe (train/recipe.py, the JAX package's
+scripts/train_rangenet_synthetic.py) chains optax's clip_by_global_norm
+and adam over warmup_cosine_decay_schedule: `recipe_train_step` is that
+step, from `warmup_cosine_decay` and `clip_by_global_norm_`, which follow
+optax's formulas.
+
 Weights cross both ways: `load_jax_train_state` puts a JAX TrainState's
 params, batch_stats and Adam moments into the port's model and optimizer,
 and `to_variables` gives the trained model as the flax-layout tree that
@@ -26,6 +32,10 @@ unsharded update (Adam is elementwise).
 
 from __future__ import annotations
 
+import math
+from typing import Callable
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -64,21 +74,96 @@ def loss_fn(model: rangenet.RangeNet, images: torch.Tensor,
     return ce.sum() / torch.clamp(mask.sum(), min=1)
 
 
-def make_train_step(model: rangenet.RangeNet, opt: torch.optim.Optimizer):
+def warmup_cosine_decay(init: float, peak: float, warmup_steps: int,
+                        decay_steps: int, end: float) -> Callable[[int],
+                                                                  float]:
+    """lr(step) by optax.warmup_cosine_decay_schedule's formula: linear
+    from `init` to `peak` over `warmup_steps`, then a cosine from `peak`
+    to `end` over `decay_steps - warmup_steps`, held at `end` after.
+    optax reads the schedule at the step count before it increments it,
+    so training step k (from 0) takes lr(k).
+
+    Evaluated in float32 in optax's order of operations, as optax
+    evaluates it: the warm-up's (init - peak) * (1 - k / warmup) + peak
+    cancels, and a float64 evaluation differs from optax's by up to
+    4e-6 relative there."""
+    span = decay_steps - warmup_steps
+    if span <= 0:
+        raise ValueError(f"decay_steps {decay_steps} must exceed "
+                         f"warmup_steps {warmup_steps}")
+    f32 = np.float32
+    alpha = 0.0 if peak == 0.0 else end / peak
+
+    def lr(step: int) -> float:
+        if step < warmup_steps:
+            frac = f32(1) - f32(step) / f32(warmup_steps)
+            return float(f32(init - peak) * frac + f32(peak))
+        t = f32(min(step - warmup_steps, span))
+        cos = f32(math.cos(f32(f32(math.pi) * t) / f32(span)))
+        decayed = f32(1 - alpha) * (f32(0.5) * (f32(1) + cos)) + f32(alpha)
+        return float(f32(peak) * decayed)
+
+    return lr
+
+
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         norm: torch.Tensor) -> None:
+    """optax.clip_by_global_norm on `grads` in place, given their global
+    L2 `norm` (a device scalar): unchanged while norm < max_norm, else
+    g / norm * max_norm. Not torch.nn.utils.clip_grad_norm_, which scales
+    by max_norm / (norm + 1e-6). No host sync: both factors are 1 (exact)
+    when the gradients pass."""
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(
+        keep, one, torch.full_like(norm, max_norm)))
+
+
+def make_train_step(model: rangenet.RangeNet, opt: torch.optim.Optimizer,
+                    lr_schedule: Callable[[int], float] | None = None,
+                    max_grad_norm: float | None = None):
     """Returns train_step(images, labels, mask) -> {"loss", "grad_norm"}
-    (device scalars): one Adam step on the masked cross-entropy."""
+    (device scalars): one Adam step on the masked cross-entropy.
+    `grad_norm` is the raw gradients' global L2 norm. With `max_grad_norm`
+    the gradients are clipped to it first (clip_by_global_norm_); with
+    `lr_schedule` the k-th call (from 0) steps at lr_schedule(k)."""
     params = list(model.parameters())
+    count = 0
 
     def train_step(images, labels, mask):
+        nonlocal count
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(model, images, labels, mask)
         loss.backward()
+        grads = [p.grad for p in params]
         grad_norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm([p.grad for p in params])))
+            torch._foreach_norm(grads)))
+        if max_grad_norm is not None:
+            clip_by_global_norm_(grads, max_grad_norm, grad_norm)
+        if lr_schedule is not None:
+            for group in opt.param_groups:
+                group["lr"] = lr_schedule(count)
+        count += 1
         opt.step()
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
     return train_step
+
+
+def recipe_schedule(steps: int, lr: float) -> Callable[[int], float]:
+    """The synthetic recipe's schedule: warm up from 0 for
+    min(100, max(steps // 5, 1)) steps, then a cosine to lr * 0.02."""
+    return warmup_cosine_decay(0.0, lr, min(100, max(steps // 5, 1)), steps,
+                               lr * 0.02)
+
+
+def recipe_train_step(model: rangenet.RangeNet, opt: torch.optim.Optimizer,
+                      steps: int, lr: float):
+    """The synthetic recipe's step (optax.chain(clip_by_global_norm(1.0),
+    adam(recipe_schedule(steps, lr)))) over make_train_step."""
+    return make_train_step(model, opt, recipe_schedule(steps, lr),
+                           max_grad_norm=1.0)
 
 
 def load_jax_train_state(model: rangenet.RangeNet, opt: torch.optim.Adam,

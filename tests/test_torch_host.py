@@ -109,11 +109,17 @@ def _imported_modules(path: Path):
 
 
 def test_port_imports_no_jax():
-    """No module of lis_slam_torch/ (run_kitti.py included) and not
-    chip_smoke.py imports jax, flax, optax or lis_slam_tpu."""
-    files = sorted(Path(lis_slam_torch.__file__).parent.rglob("*.py"))
-    files.append(_REPO / "chip_smoke.py")
+    """No module of lis_slam_torch/ (run_kitti.py and train/recipe.py
+    included), not chip_smoke.py and not the recipe's CLI
+    scripts/train_rangenet_synthetic_torch.py imports jax, flax, optax or
+    lis_slam_tpu."""
+    pkg = Path(lis_slam_torch.__file__).parent
+    files = sorted(pkg.rglob("*.py"))
+    files += [_REPO / "chip_smoke.py",
+              _REPO / "scripts" / "train_rangenet_synthetic_torch.py"]
     assert any(f.name == "run_kitti.py" for f in files)
+    assert pkg / "train" / "recipe.py" in files
+    assert all(f.is_file() for f in files)
     banned = ("jax", "jaxlib", "flax", "optax", "lis_slam_tpu")
     for f in files:
         for mod in _imported_modules(f):
