@@ -4,7 +4,8 @@
 Drives the port's front-end odometry step, its LiDAR-inertial path, the
 batched multi-sequence replay, the full SLAM system, the KITTI-replay CLI,
 checkpoint/resume, NDT, RangeNet training, the multi-device layer, the
-unfused projection pair and the synthetic RangeNet recipe, with the three
+unfused projection pair, the synthetic RangeNet recipe and a 1000-scan
+endurance run with a mid-run resume, with the three
 hand-written CUDA kernels, through these phases (one or more lines each;
 projection runs after K2, recipe last):
 
@@ -105,15 +106,32 @@ projection runs after K2, recipe last):
               fresh SemanticSlam and continued: raw poses within 1e-4,
               corrected within 5e-3, the same submaps and loop factors;
               the file's size, save and load ms;
- 15. ndt    - build_ndt + ndt_align between two plaza submaps on the card
+ 15. endurance - in a process of its own: the JAX bench's endurance
+              section (bench.py:274-400) through the port: 10 plaza laps
+              of 100 scans (1000), even laps the slam phase's render, odd
+              laps a second full-lap render (its first 40 scans the slam
+              phase's extra ones), ground-truth labels, the drift hook on
+              the global scan index: scans/s, lap walls, the flush tail,
+              corrected and raw ATE and per-lap ATE held to the JAX
+              package's CPU run
+              (scripts/endurance_accuracy_bars.py), loop factors per lap,
+              submaps, keyframes and releases, the graph's size and solver
+              route, host syncs per lap, device memory after each lap
+              against a reckoning from the config's capacities, peak host
+              RSS; a run stopped after scan 500, saved, loaded into a
+              fresh system and continued, against the uninterrupted one;
+              K1/K2 against their plain versions at lap 10's shapes; the
+              centroid voxel downsample (twice bit-equal on the card, and
+              against the host) and the two random downsample masks.
+ 16. ndt    - build_ndt + ndt_align between two plaza submaps on the card
               against the same calls on the host (transform within 1e-4,
               the same iterations and convergence), ms a call;
- 16. train  - five RangeNet training steps (train/seg_train.py) at the
+ 17. train  - five RangeNet training steps (train/seg_train.py) at the
               full darknet53 width, 64 x 2048 x 5 bf16, batch 2, on one
               seeded batch: the loss falls; ms a step, peak memory; the
               trained weights as SemanticSlam's rangenet_params label a
               plaza scan.
- 17. sharded - the multi-device layer (parallel/mesh.py) with ranks
+ 18. sharded - the multi-device layer (parallel/mesh.py) with ranks
               started by mesh.spawn (processes; the kernels built once
               above, each rank loading them): (a) a world of one over
               NCCL: replay_batched(mesh=make_mesh(1)) of the batched
@@ -133,7 +151,7 @@ projection runs after K2, recipe last):
               leaf's largest), then five bf16 steps (the loss falls; ms a
               step, peak memory per rank); (d) the port's
               dryrun_multichip(4) over gloo (data 1 x model 2 x space 2).
- 18. projection - ops/projection.py project + extract (the unfused pair)
+ 19. projection - ops/projection.py project + extract (the unfused pair)
               on a full HDL-64 plaza scan (64 x 1800, P = 115200) with its
               labels in the rel_time channel: the card against the host
               on the same pretreated points, bit-equal outside the pixels
@@ -142,7 +160,7 @@ projection runs after K2, recipe last):
               fused project_and_extract against its
               pair (masks, counts, columns equal; ranges within 0.02 m);
               ms a call of both (CUDA events).
- 19. recipe - the synthetic RangeNet recipe (train/recipe.py, the JAX
+ 20. recipe - the synthetic RangeNet recipe (train/recipe.py, the JAX
               script scripts/train_rangenet_synthetic.py's): 88 labelled
               64 x 1824 images rendered on the card, 2500 steps of the
               slim net on 512-wide crops, batch 8, bf16, warm-up + cosine
@@ -1168,10 +1186,12 @@ def _slam_drift_hook(pose6, idx):
     return se3_np.matrix_to_pose(Td @ se3_np.pose_to_matrix(pose6))
 
 
-def _render_plaza(cfg, dev, distorted=False):
+def _render_plaza(cfg, dev, distorted=False, extra=SLAM_EXTRA):
     """The plaza lap of bench.py:145-201 on the card: SLAM_LAP scans, then
-    SLAM_EXTRA along the start of the lap on a second noise render; each
-    compacted as the bench's loader does, with its labels. With
+    `extra` along the start of the lap on a second noise render (its first
+    SLAM_EXTRA scans are the same for any `extra`; SLAM_LAP of them make
+    the endurance phase's second full lap); each compacted as the bench's
+    loader does, with its labels. With
     `distorted`, each sweep moves from gt[i] to gt[i + 1] over its 0.1 s,
     and scan k's IMU rows of that motion (imu_rows: 24 samples over 0.11
     s, at k * 0.1 s) come pre-rotated by extrinsic_rot^T. Returns (seq,
@@ -1187,7 +1207,7 @@ def _render_plaza(cfg, dev, distorted=False):
         n + 1, radius=10.0, speed=2.0 * np.pi * 10.0 / (n * 0.1))
     R_ext = np.asarray(cfg.imu.extrinsic_rot, np.float64)
     seq, imu = [], []
-    for lap_seed, count in ((9, n), (11, SLAM_EXTRA)):
+    for lap_seed, count in ((9, n), (11, extra)):
         gen = torch.Generator(device=dev)
         gen.manual_seed(lap_seed)
         for i in range(count):
@@ -1201,7 +1221,7 @@ def _render_plaza(cfg, dev, distorted=False):
                             (a @ R_ext).astype(np.float32)))
             seq.append((driver.compact_scan(p, v, cfg),
                         driver.compact_labels(p, v, lab, cfg)))
-    gt_seq = np.concatenate([gt[:n], gt[:SLAM_EXTRA]])
+    gt_seq = np.concatenate([gt[:n], gt[:extra]])
     return seq, gt_seq, (imu if distorted else None)
 
 
@@ -1310,41 +1330,58 @@ SYNC_STAGES = {
 }
 
 
-def _slam_syncs(cfg, seq, dev, hook=_slam_drift_hook, scan_kw=None):
-    """Host syncs of a SemanticSlam run over `seq` (scan 0 through
-    flush_pipeline, with `hook` and scan i's process_scan keywords
-    scan_kw(i) (default its timestamp), as the timed run), by stage; every
-    synchronizing CUDA call warns once under the sync debug mode."""
-    import torch
-    from lis_slam_torch.pipeline import slam
+class _SyncCount:
+    """Counts the synchronizing CUDA calls made inside the block (sync
+    debug mode "warn": each warns once), by stage: a call is charged to
+    the innermost SYNC_STAGES function on its Python stack."""
 
-    counts: dict[str, int] = {}
+    def __init__(self):
+        self.by_stage: dict[str, int] = {}
 
-    def show(message, category, filename, lineno, file=None, line=None):
-        if "synchronizing" not in str(message):
-            return
-        f, stage = sys._getframe(1), "other"
-        while f is not None:
-            if f.f_code.co_name in SYNC_STAGES:
-                stage = SYNC_STAGES[f.f_code.co_name]
-                break
-            f = f.f_back
-        counts[stage] = counts.get(stage, 0) + 1
+    def __enter__(self):
+        import torch
 
-    system = slam.SemanticSlam(cfg, pose_hook=hook, device=dev)
-    with warnings.catch_warnings():
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchronizing" not in str(message):
+                return
+            f, stage = sys._getframe(1), "other"
+            while f is not None:
+                if f.f_code.co_name in SYNC_STAGES:
+                    stage = SYNC_STAGES[f.f_code.co_name]
+                    break
+                f = f.f_back
+            self.by_stage[stage] = self.by_stage.get(stage, 0) + 1
+
+        self._w = warnings.catch_warnings()
+        self._w.__enter__()
         warnings.simplefilter("always")
         warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for i, (scan, labels) in enumerate(seq):
-                kw = (dict(timestamp=i * 0.1) if scan_kw is None
-                      else scan_kw(i))
-                system.process_scan(scan, gt_labels=labels, **kw)
-            system.flush_pipeline()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return dict(sorted(counts.items(), key=lambda kv: -kv[1])), system
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+        self._w.__exit__(*exc)
+
+    def ordered(self) -> dict[str, int]:
+        return dict(sorted(self.by_stage.items(), key=lambda kv: -kv[1]))
+
+
+def _slam_syncs(cfg, seq, dev, hook=_slam_drift_hook, scan_kw=None):
+    """Host syncs of a SemanticSlam run over `seq` (scan 0 through
+    flush_pipeline, with `hook` and scan i's process_scan keywords
+    scan_kw(i) (default its timestamp), as the timed run), by stage."""
+    from lis_slam_torch.pipeline import slam
+
+    system = slam.SemanticSlam(cfg, pose_hook=hook, device=dev)
+    with _SyncCount() as counter:
+        for i, (scan, labels) in enumerate(seq):
+            kw = dict(timestamp=i * 0.1) if scan_kw is None else scan_kw(i)
+            system.process_scan(scan, gt_labels=labels, **kw)
+        system.flush_pipeline()
+    return counter.ordered(), system
 
 
 def _slam_cfg():
@@ -1773,9 +1810,9 @@ def _drifted_square(gb, n):
 def _cg_phase(dev):
     """optimize_cg against the dense LM on a 64-node drifted loop with a
     GPS prior (CG on the card, dense on the host), then the CG solve's
-    ms on the host and on the card at CG_SIZES nodes (the whole
-    GraphBuilder.optimize, readback included), and the end node's pull
-    at the first size."""
+    ms on the host and on the card at CG_SIZES nodes (one
+    GraphBuilder.optimize after a warm-up, readback included), and the
+    end node's pull at the first size."""
     import dataclasses
 
     import torch
@@ -1798,11 +1835,9 @@ def _cg_phase(dev):
             gb, gt, est = builder(n, device)
             gb.optimize()  # warm-up
             t = time.perf_counter()
-            reps = 2
-            for _ in range(reps):
-                gb.nodes = [e.copy() for e in est]
-                opt = gb.optimize()
-            out[f"{name}_ms_{n}"] = (time.perf_counter() - t) / reps * 1e3
+            gb.nodes = [e.copy() for e in est]
+            opt = gb.optimize()
+            out[f"{name}_ms_{n}"] = (time.perf_counter() - t) * 1e3
             if n == CG_SIZES[0]:
                 before = float(np.linalg.norm(est[-1][:3, 3] - gt[-1][:3, 3]))
                 after = float(np.linalg.norm(opt[-1][:3, 3] - gt[-1][:3, 3]))
@@ -2251,11 +2286,364 @@ def phase_checkpoint(seq, gt, dev, out_dir):
     return full
 
 
+ENDURANCE_LAPS = 10  # bench.py:276 (BENCH_ENDURANCE_SCANS 1000)
+ENDURANCE_RESUME_AT = 500  # the resume run's save: end of lap 5 (render B)
+ENDURANCE_MEM_FACTOR = 1.5  # device memory growth, lap 2 -> 10, vs reckoned
+CENTROID_LEAF = 0.4  # the submap surf leaf
+CENTROID_RTOL = 2e-6  # card vs host, of |coordinate| (test_torch_downsample)
+MASK_RATIO = 0.5  # random_downsample_mask's keep ratio on the card
+MASK_TARGET = 20000  # fixed_count_downsample_mask's target on the card
+# scripts/endurance_accuracy_bars.py: the JAX package on the CPU,
+# gn_backend "xla", 10 laps, 1111 s (timeout 5400 python
+# scripts/endurance_accuracy_bars.py, 2026-10-17)
+JAX_ENDURANCE = {"ate_corrected_m": 0.021829740481900617,
+                 "ate_raw_m": 1.216783662650576,
+                 "lap_ate_m": [0.02912605649972124, 0.018534379952923688,
+                               0.022634113813255176, 0.019799363108653305,
+                               0.019781855879348595, 0.02337745126096615,
+                               0.019731727749246152, 0.020335388681874993,
+                               0.020723189997488935, 0.022339665038040083],
+                 "loop_factors": 98, "n_submaps": 67, "keyframes": 334,
+                 "keyframes_released": 326, "graph_nodes": 67,
+                 "graph_edges": 164}
+
+
+def _endurance_bytes(cfg):
+    """Device bytes that the endurance run adds, reckoned from config.py's
+    capacities, each tensor rounded up to the caching allocator's 512-byte
+    blocks: a closed submap (corner, surf and class clouds: xyz float32,
+    masks bool, class weights float32), a keyframe's retained fields
+    once its clouds are released (its selected descriptor (rings x
+    sectors) and 360 x 4 signature in the loop detector; its poses live on
+    the host), a keyframe's clouds while they are held (class clouds,
+    front-end corner and surf), and a graph node (0: the graph and its LM
+    live on the host; the CG path's tensors are transient)."""
+    def t(n, itemsize=4):
+        return -(-n * itemsize // 512) * 512
+
+    sc, lc, fc = cfg.submap, cfg.loop, cfg.feature
+    qk = sc.keyframe_class_capacity
+    return dict(
+        submap=(t(3 * sc.corner_capacity) + t(sc.corner_capacity, 1)
+                + t(3 * sc.surf_capacity) + t(sc.surf_capacity, 1)
+                + t(15 * sc.class_capacity) + t(5 * sc.class_capacity, 1)
+                + t(5 * sc.class_capacity)),
+        kf_retained=t(lc.rings * lc.sectors) + t(360 * 4),
+        kf_clouds=(t(15 * qk) + t(5 * qk, 1) + t(5 * qk)
+                   + t(3 * fc.max_corner_points) + t(fc.max_corner_points, 1)
+                   + t(3 * fc.max_surf_points) + t(fc.max_surf_points, 1)),
+        node=0)
+
+
+def _endurance_mark(system):
+    """The back end's counts at a lap boundary."""
+    import torch
+
+    kfs = system.keyframes
+    return dict(mem=torch.cuda.memory_allocated(),
+                submaps=len(system.collector.submaps), keyframes=len(kfs),
+                released=sum(kf.released for kf in kfs),
+                nodes=len(system.graph.nodes), edges=len(system.graph.edges),
+                loop_factors=system._n_loop_factors)
+
+
+def _endurance_downsample(seq, dev):
+    """The centroid voxel downsample on one compacted plaza scan (65536
+    rows), twice on the card (bit-equal) and on the host (within
+    CENTROID_RTOL); the two random masks' kept share on the card within 5
+    binomial sigmas; ms a call (CUDA events) and its device time."""
+    import torch
+    from lis_slam_torch.mapping import submap as sm
+    from lis_slam_torch.ops import voxel
+
+    scan = seq[0][0]
+    pts, valid = scan.points[:, :3].contiguous(), scan.valid
+    cap = pts.shape[0]
+
+    def run(p, v):
+        return voxel.voxel_downsample(p, v, CENTROID_LEAF, cap, centroid=True)
+
+    a, b = run(pts, valid), run(pts, valid)
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    h = run(pts.cpu(), valid.cpu())
+    n_card, n_host = int(a[2]), int(h[2])
+    masks_eq = torch.equal(a[1].cpu(), h[1])
+    ref = h[0].numpy()
+    err = float(np.max(np.abs(a[0].cpu().numpy() - ref)
+                       / np.maximum(np.abs(ref), 1.0)))
+    ms = call_ms(lambda: run(pts, valid), iters=10)
+    dms, by_name = device_ms(lambda: run(pts, valid), iters=10)
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:4])
+    n = int(valid.sum())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    shares = {}
+    for name, fn, p in (
+            ("random", lambda: sm.random_downsample_mask(valid, MASK_RATIO,
+                                                         gen), MASK_RATIO),
+            ("fixed_count", lambda: sm.fixed_count_downsample_mask(
+                valid, MASK_TARGET, gen), min(1.0, MASK_TARGET / n))):
+        m = fn()
+        kept = int(m.sum())
+        sigma = float(np.sqrt(n * p * (1 - p)))
+        shares[name] = dict(kept=kept, n=n, p=p, sigma=sigma,
+                            subset=not bool((m & ~valid).any()),
+                            ms=call_ms(fn, iters=10))
+    log("endurance", f"centroid voxel_downsample (leaf {CENTROID_LEAF}, "
+        f"{n} of {cap} rows): {n_card} voxels on the card, {n_host} on the "
+        f"host; two card runs bit-equal {same}; masks equal {masks_eq}; "
+        f"card vs host max rel err {err:.3g} (limit {CENTROID_RTOL}); "
+        f"{ms:.4f} ms a call (CUDA events), {dms:.4f} ms of device time "
+        f"(profiler; largest: {json.dumps(top)}); masks: "
+        + json.dumps(shares))
+    check(same, "endurance: the centroid downsample differs run to run")
+    check(n_card == n_host and masks_eq,
+          f"endurance: centroid voxels {n_card} on the card vs {n_host}")
+    check(err <= CENTROID_RTOL, f"endurance: centroid card vs host {err}")
+    for name, sh in shares.items():
+        check(sh["subset"], f"endurance: {name} mask keeps invalid rows")
+        check(abs(sh["kept"] - sh["n"] * sh["p"]) <= 5 * sh["sigma"],
+              f"endurance: {name} mask kept {sh['kept']} of {sh['n']}")
+    return dict(centroid_voxels=n_card, centroid_bit_equal=same,
+                centroid_rel_err=err, centroid_ms=ms, centroid_device_ms=dms,
+                masks=shares)
+
+
+def phase_endurance(seq, gt, dev, out_dir):
+    """SemanticSlam over ENDURANCE_LAPS plaza laps (bench.py:274-400),
+    uninterrupted and resumed from a checkpoint after
+    ENDURANCE_RESUME_AT scans; then K1/K2 at the final system's shapes.
+    `seq`, `gt`: the slam phase's render (checked against the longer
+    one). Returns ({"endurance": K1/K2/K3 launches}, (K1 err, K2 err))."""
+    import resource
+
+    import torch
+    from lis_slam_torch.pipeline import slam, trajectory
+    from lis_slam_torch.runtime import checkpoint
+
+    cfg = _slam_cfg()
+    t = time.perf_counter()
+    two, gt2, _ = _render_plaza(cfg, dev, extra=SLAM_LAP)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t
+    check(all(torch.equal(a[0].points, b[0].points)
+              and np.array_equal(a[1], b[1]) for a, b in zip(seq, two)),
+          "endurance: the longer render's first scans are not the slam "
+          "phase's")
+    laps, n = ENDURANCE_LAPS, SLAM_LAP
+    lap_a, lap_b = two[:n], two[n:2 * n]
+    run = [(lap_a if (k // n) % 2 == 0 else lap_b)[k % n]
+           for k in range(laps * n)]
+    gt_tiled = np.tile(trajectory.relative_to_first(gt2[:n]), (laps, 1))
+    down = _endurance_downsample(two, dev)
+
+    def feed(system, lo, hi, marks=None, counter=None, cum=None):
+        """Scans lo..hi-1; at each lap's end, the back end's counts into
+        `marks`, or the syncs `counter` holds so far into `cum`."""
+        for k in range(lo, hi):
+            system.process_scan(run[k][0], gt_labels=run[k][1],
+                                timestamp=k * 0.1)
+            if (k + 1) % n == 0 and marks is not None:
+                marks.append(_endurance_mark(system))
+            if (k + 1) % n == 0 and counter is not None:
+                cum.append(sum(counter.by_stage.values()))
+
+    _slam_run(cfg, run[:SLAM_WARMUP], dev, "endurance")  # warm-up
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    system = slam.SemanticSlam(cfg, pose_hook=_slam_drift_hook, device=dev)
+    marks, walls = [], []
+    torch.cuda.synchronize()
+    t0 = t_lap = time.perf_counter()
+    for lap in range(laps):
+        feed(system, lap * n, (lap + 1) * n, marks)
+        now = time.perf_counter()
+        walls.append(now - t_lap)
+        t_lap = now
+    t_fl = time.perf_counter()
+    system.flush_pipeline()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t_fl
+    wall = time.perf_counter() - t0
+    counts = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    res = system.finish()
+    final = _endurance_mark(system)
+    sps = laps * n / wall
+    lap_sps = n / float(np.median(walls))
+    ate = trajectory.ate_rmse(res.poses, gt_tiled, align=True)
+    raw = trajectory.ate_rmse(res.raw_poses, gt_tiled, align=True)
+    e = res.poses[:, 3:6].astype(np.float64)
+    R, tr = trajectory.align_umeyama(e, gt_tiled[:, 3:6])
+    lap_ate = np.sqrt(np.mean(np.sum((e @ R.T + tr - gt_tiled[:, 3:6]) ** 2,
+                                     axis=1).reshape(laps, n), axis=1))
+    # loop factors landed while each lap ran (the last lap's with the flush
+    # and finish)
+    lf = [m["loop_factors"] for m in marks[:-1]] + [res.n_loops]
+    lap_loops = np.diff([0] + lf).tolist()
+    n_keep = cfg.submap.release_after_submaps
+    subs = system.collector.submaps
+    held = sum(len(s.kf_indices) for s in subs[-n_keep:]) + len(
+        system.collector._cur_kfs)
+    g = system.graph
+    padded = g._bucket(len(g.nodes), g.max_nodes)
+    route = ("cg" if cfg.graph.solver == "cg" or (
+        cfg.graph.solver == "auto" and padded > cfg.graph.dense_max_nodes)
+        else "dense LM")
+    solves = system.timer.stats["graph_optimize"].count if (
+        "graph_optimize" in system.timer.stats) else 0
+    stages = {k: round(v["total_ms"], 3)
+              for k, v in system.timer.report().items()}
+    host_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    per = _endurance_bytes(cfg)
+    m2, m10 = marks[1], marks[-1]
+    d_sub = m10["submaps"] - m2["submaps"]
+    d_kf = m10["keyframes"] - m2["keyframes"]
+    d_held = ((m10["keyframes"] - m10["released"])
+              - (m2["keyframes"] - m2["released"]))
+    d_nodes = m10["nodes"] - m2["nodes"]
+    reckoned = (d_sub * per["submap"] + d_kf * per["kf_retained"]
+                + d_held * per["kf_clouds"] + d_nodes * per["node"])
+    grown = m10["mem"] - m2["mem"]
+    bar = 1.5 * JAX_ENDURANCE["ate_corrected_m"] + 0.02
+    log("endurance", f"rendered the second full lap with the first on the "
+        f"card in {render_s:.2f} s; {laps} laps x {n} scans: "
+        f"{sps:.3f} scans/s through flush_pipeline ({wall:.3f} s), median "
+        f"lap {lap_sps:.3f} scans/s, flush tail {flush_s:.3f} s; lap walls "
+        f"s {[round(w, 3) for w in walls]}")
+    log("endurance", f"ATE aligned corrected {ate:.4f} m, raw {raw:.4f} m "
+        f"(JAX CPU corrected {JAX_ENDURANCE['ate_corrected_m']:.4f}, raw "
+        f"{JAX_ENDURANCE['ate_raw_m']:.4f}; limit {bar:.4f}); per-lap ATE "
+        f"{[round(float(x), 4) for x in lap_ate]} (JAX "
+        f"{[round(x, 4) for x in JAX_ENDURANCE['lap_ate_m']]}); loop "
+        f"factors {res.n_loops} (JAX {JAX_ENDURANCE['loop_factors']}), per "
+        f"lap {lap_loops}; submaps {res.n_submaps} (JAX "
+        f"{JAX_ENDURANCE['n_submaps']}); keyframes {final['keyframes']} "
+        f"(JAX {JAX_ENDURANCE['keyframes']}), released "
+        f"{final['released']} (JAX {JAX_ENDURANCE['keyframes_released']}), "
+        f"held {held}")
+    log("endurance", f"pose graph {final['nodes']} nodes (padded "
+        f"{padded}, dense_max_nodes {cfg.graph.dense_max_nodes}: {route}), "
+        f"{final['edges']} edges (JAX {JAX_ENDURANCE['graph_nodes']} / "
+        f"{JAX_ENDURANCE['graph_edges']}), {solves} solves; K1 launches "
+        f"{counts[0]}, K2 launches {counts[1]}")
+    log("endurance", f"device memory allocated after each lap (bytes): "
+        f"{[m['mem'] for m in marks]}; peak {peak}; lap 2 -> {laps}: "
+        f"+{grown} bytes for {d_sub} submaps, {d_kf} keyframes ({d_held:+d} "
+        f"holding clouds), {d_nodes} nodes; reckoned {reckoned} bytes "
+        f"({json.dumps(per)}), limit {ENDURANCE_MEM_FACTOR} x; peak host "
+        f"RSS of the process {host_rss} bytes")
+    log("endurance", "stage totals ms: " + json.dumps(stages))
+
+    # the resume: scans 0..RESUME_AT-1, saved, loaded into a fresh system,
+    # the rest; host syncs per lap counted meanwhile (untimed)
+    first = slam.SemanticSlam(cfg, pose_hook=_slam_drift_hook, device=dev)
+    cum1, cum2 = [], []
+    with _SyncCount() as sync1:
+        feed(first, 0, ENDURANCE_RESUME_AT, counter=sync1, cum=cum1)
+    path = os.path.join(out_dir, "endurance_ckpt.npz")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    checkpoint.save_slam(path, first)
+    save_ms = (time.perf_counter() - t) * 1e3
+    released = sum(kf.released for kf in first.keyframes)
+    n_kf = len(first.keyframes)
+    del first
+    resumed = slam.SemanticSlam(cfg, pose_hook=_slam_drift_hook, device=dev)
+    t = time.perf_counter()
+    checkpoint.load_slam(path, resumed)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t) * 1e3
+    size = os.path.getsize(path)
+    os.remove(path)
+    with _SyncCount() as sync2:
+        feed(resumed, ENDURANCE_RESUME_AT, laps * n, counter=sync2, cum=cum2)
+    r_res = resumed.finish()
+    del resumed
+    lap_syncs = np.diff([0] + cum1).tolist() + np.diff([0] + cum2).tolist()
+    sync_stages = {k: sync1.by_stage.get(k, 0) + sync2.by_stage.get(k, 0)
+                   for k in {**sync1.by_stage, **sync2.by_stage}}
+    sync_stages = dict(sorted(sync_stages.items(), key=lambda kv: -kv[1]))
+    d_raw = float(np.abs(r_res.raw_poses - res.raw_poses).max())
+    d_cor = float(np.abs(r_res.poses - res.poses).max())
+    log("endurance", f"resume: saved after scan {ENDURANCE_RESUME_AT}: "
+        f"{size} bytes, save {save_ms:.1f} ms (flush_pipeline included), "
+        f"load {load_ms:.1f} ms; {released} of {n_kf} keyframes released at "
+        f"the save; resumed vs uninterrupted over {laps * n} scans: raw "
+        f"max |diff| {d_raw:.3g} (limit {CKPT_RAW_ATOL}), corrected "
+        f"{d_cor:.3g} (limit {CKPT_CORRECTED_ATOL}); submaps "
+        f"{r_res.n_submaps} vs {res.n_submaps}, loop factors "
+        f"{r_res.n_loops} vs {res.n_loops}; host syncs per lap (the "
+        f"resumed pair's) {lap_syncs}, by stage over the {laps * n} scans "
+        f"{json.dumps(sync_stages)}")
+    with open(os.path.join(out_dir, "endurance.json"), "w") as f:
+        json.dump({"scans_per_s": sps, "median_lap_scans_per_s": lap_sps,
+                   "flush_s": flush_s, "lap_walls_s": walls,
+                   "ate_corrected_m": ate, "ate_raw_m": raw,
+                   "lap_ate_m": lap_ate.tolist(), "jax": JAX_ENDURANCE,
+                   "loop_factors": res.n_loops, "lap_loop_factors": lap_loops,
+                   "n_submaps": res.n_submaps, "final": final,
+                   "held_keyframes": held, "graph_route": route,
+                   "graph_padded_nodes": padded, "graph_solves": solves,
+                   "lap_marks": marks, "peak_bytes": peak,
+                   "host_max_rss_bytes": host_rss, "reckoned_bytes": per,
+                   "growth_bytes": grown, "reckoned_growth_bytes": reckoned,
+                   "stages_total_ms": stages, "launches": counts,
+                   "syncs_per_lap": lap_syncs, "syncs_by_stage": sync_stages,
+                   "downsample": down,
+                   "resume": {"bytes": size, "save_ms": save_ms,
+                              "load_ms": load_ms,
+                              "released_at_save": released,
+                              "keyframes_at_save": n_kf,
+                              "raw_max_diff": d_raw,
+                              "corrected_max_diff": d_cor,
+                              "n_submaps": r_res.n_submaps,
+                              "loop_factors": r_res.n_loops},
+                   "poses": res.poses.tolist()}, f)
+    check(ate < raw, f"endurance: corrected ATE {ate} >= raw {raw}")
+    check(ate <= bar, f"endurance: corrected ATE {ate} > {bar}")
+    check(lap_ate[-1] <= bar, f"endurance: last lap's ATE {lap_ate[-1]} > "
+          f"{bar}")
+    check(res.n_loops >= laps - 1, f"endurance: {res.n_loops} loop factors")
+    check(all(c >= 1 for c in lap_loops[1:]),
+          f"endurance: a revisit lap without a loop factor: {lap_loops}")
+    check(abs(res.n_submaps - JAX_ENDURANCE["n_submaps"]) <= 2,
+          f"endurance: {res.n_submaps} submaps, JAX "
+          f"{JAX_ENDURANCE['n_submaps']}")
+    check(final["released"] >= final["keyframes"] - held,
+          f"endurance: {final['released']} of {final['keyframes']} "
+          f"keyframes released, {held} held")
+    check(grown <= ENDURANCE_MEM_FACTOR * reckoned,
+          f"endurance: device memory grew {grown} bytes, reckoned "
+          f"{reckoned}")
+    check(d_raw <= CKPT_RAW_ATOL, f"endurance: resumed raw poses {d_raw}")
+    check(d_cor <= CKPT_CORRECTED_ATOL,
+          f"endurance: resumed corrected poses {d_cor}")
+    check(r_res.n_submaps == res.n_submaps and r_res.n_loops == res.n_loops,
+          "endurance: the resumed run's submaps or loop factors differ")
+    check(counts[0] > 0 and counts[1] > 0, f"endurance: launches {counts}")
+    err = _check_slam_kernels(system, cfg, dev, path="endurance")
+    return {"endurance": counts}, err
+
+
+def _endurance_child(out_dir):
+    """phase_endurance in a fresh process (main starts it): the plaza
+    render, the phase, and the phase's kernel cases. Returns (launches,
+    (K1 err, K2 err), CASES)."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    seq, gt, _ = _render_plaza(_slam_cfg(), dev)
+    launches, err = phase_endurance(seq, gt, dev, out_dir)
+    return launches, err, CASES
+
+
 def phase_ndt(system, dev, out_dir):
     """NDT (ops/icp.build_ndt + ndt_align) between two plaza submaps: the
     third submap's surf cloud in its own frame onto the second's, seeded
     with the odometry pose; on the card against the same calls on the
-    host."""
+    host (ms a call: build over 3 calls each, align over 3 on the card
+    and 1 on the host)."""
     import torch
     from lis_slam_torch.ops import icp
     from lis_slam_torch.utils import se3
@@ -2270,15 +2658,17 @@ def phase_ndt(system, dev, out_dir):
         grid = icp.build_ndt(*args)
         res = icp.ndt_align(src.to(d), cur.surf_mask.to(d), grid, T0)
         sync = torch.cuda.synchronize if d.type == "cuda" else (lambda: None)
+        # one timed align on the host: its loop takes seconds a call
+        reps = 3 if d.type == "cuda" else 1
         t = time.perf_counter()
         for _ in range(3):
             icp.build_ndt(*args)
         sync()
         build_ms = (time.perf_counter() - t) / 3 * 1e3
         t = time.perf_counter()
-        for _ in range(3):
+        for _ in range(reps):
             icp.ndt_align(src.to(d), cur.surf_mask.to(d), grid, T0)
-        align_ms = (time.perf_counter() - t) / 3 * 1e3
+        align_ms = (time.perf_counter() - t) / reps * 1e3
         runs[name] = (grid, res, build_ms, align_ms)
     (gc, rc, bc, ac), (gh, rh, bh, ah) = runs["card"], runs["host"]
     d_T = float(torch.max(torch.abs(rc.transform - rh.transform)))
@@ -3609,17 +3999,26 @@ def main() -> int:
         print(f"FAIL: {e} (run from a checkout of the repository)",
               file=sys.stderr)
         return 1
-    phase = "device"
+    phase, t_phase = "device", time.perf_counter()
+
+    def begin(name):
+        """Log the finished phase's wall seconds; return `name`."""
+        nonlocal t_phase
+        now = time.perf_counter()
+        log("time", f"{phase} {now - t_phase:.1f} s")
+        t_phase = now
+        return name
+
     try:
         card = phase_device()
         os.makedirs(args.out, exist_ok=True)
-        phase = "build"
+        phase = begin("build")
         phase_build(args.out)
         if args.baseline:
             global BASELINE
             BASELINE = _load_baseline(args.baseline)
 
-        phase = "data"
+        phase = begin("data")
         from lis_slam_torch.config import SensorConfig, SlamConfig
         from lis_slam_torch.io import synthetic_torch
         from lis_slam_torch.pipeline import driver
@@ -3639,59 +4038,72 @@ def main() -> int:
             f"{int(scans[0].valid.sum())} of {cfg.sensor.max_raw_points}")
         inp = _build_inputs(scans, gt, cfg, dev)
 
-        phase = "K1"
+        phase = begin("K1")
         k1 = phase_k1(inp, dev)
-        phase = "K2"
+        phase = begin("K2")
         k2 = phase_k2(inp, cfg, dev)
         del inp
-        phase = "projection"
+        phase = begin("projection")
         phase_projection(dev, args.out)
-        phase = "main"
+        phase = begin("main")
         launches, vec_poses = phase_main(scans, gt, cfg, dev, args.out)
-        phase = "lio"
+        phase = begin("lio")
         launches.update(phase_lio(dev, args.out))
-        phase = "greedy"
+        phase = begin("greedy")
         launches.update(phase_greedy(scans, gt, cfg, dev, vec_poses))
-        phase = "batched"
+        phase = begin("batched")
         batched_launches, k3 = phase_batched(scans, gt, cfg, dev, args.out)
         launches.update(batched_launches)
         clouds = [(c.points.cpu().numpy(), c.valid.cpu().numpy())
                   for c in scans]
         del scans
-        phase = "slam"
+        phase = begin("slam")
         slam_launches, (k1_slam, k2_slam), plaza = phase_slam(dev, args.out)
         launches.update(slam_launches)
         k1, k2 = max(k1, k1_slam), max(k2, k2_slam)
-        phase = "semantic"
+        phase = begin("semantic")
         darknet = phase_semantic(dev, args.out)
-        phase = "slam_infer"
+        phase = begin("slam_infer")
         launches.update(phase_slam_infer(*plaza, darknet, dev, args.out))
         del darknet
-        phase = "lio_slam"
+        phase = begin("lio_slam")
         lio_launches, (k1_lio, k2_lio) = phase_lio_slam(*plaza, dev, args.out)
         launches.update(lio_launches)
         k1, k2 = max(k1, k1_lio), max(k2, k2_lio)
-        phase = "cli"
+        phase = begin("cli")
         cli_launches, (k1_cli, k2_cli) = phase_cli(card, dev, args.out)
         launches.update(cli_launches)
         k1, k2 = max(k1, k1_cli), max(k2, k2_cli)
-        phase = "checkpoint"
+        phase = begin("checkpoint")
         resumed_from = phase_checkpoint(*plaza, dev, args.out)
         del plaza
-        phase = "ndt"
+        # a process of its own: after several million launches in one
+        # process, torch.profiler's windows lose K2's device records (the
+        # recipe phase's, and this phase's kernel check when it ran here)
+        phase = begin("endurance")
+        ctx = torch.multiprocessing.get_context("spawn")
+        with ctx.Pool(1) as pool:
+            end_launches, (k1_end, k2_end), end_cases = pool.apply(
+                _endurance_child, (args.out,))
+        for key, cases in end_cases.items():
+            CASES[key].extend(cases)
+        launches.update(end_launches)
+        k1, k2 = max(k1, k1_end), max(k2, k2_end)
+        phase = begin("ndt")
         phase_ndt(resumed_from, dev, args.out)
         del resumed_from
-        phase = "train"
+        phase = begin("train")
         phase_train(dev, args.out)
-        phase = "sharded"
+        phase = begin("sharded")
         sharded_launches, k2_shard = phase_sharded(clouds, gt, cfg, dev,
                                                    args.out)
         launches.update(sharded_launches)
         k2 = max(k2, k2_shard)
         # last: after ~5 million launches of the recipe's training, this
         # process's later torch.profiler windows lost K2's device records
-        phase = "recipe"
+        phase = begin("recipe")
         launches.update(phase_recipe(dev, args.out))
+        begin(None)
         with open(os.path.join(args.out, "kernel_cases.json"), "w") as f:
             json.dump({"card": card, "cases": CASES}, f, indent=1)
     except BaseException as e:  # any failure: report and exit nonzero

@@ -7,8 +7,9 @@ produced them; poses and bookkeeping are host numpy. The JAX module pads
 the member count of a closing submap to a few bucket sizes only to bound
 XLA compiles: the padded rows are masked and change nothing, so the port
 merges exactly the members (tests/test_torch_submap.py shows both agree
-bit for bit). The random and fixed-count downsample masks of the JAX
-module are not on any path and are not ported.
+bit for bit). The random and fixed-count downsample masks draw from an
+explicit torch.Generator where JAX takes a PRNG key, so they keep JAX's
+formulas and distribution, not its bits.
 """
 
 from __future__ import annotations
@@ -145,6 +146,26 @@ def dynamic_removal_mask(feature_pts: torch.Tensor, feature_mask: torch.Tensor,
     keep = (((d1 > near_thre ** 2) & (d1 < min_thre ** 2))
             | (d1 > max_thre ** 2))
     return feature_mask & (outside | keep)
+
+
+def random_downsample_mask(mask: torch.Tensor, keep_ratio: float,
+                           generator: torch.Generator) -> torch.Tensor:
+    """random_downsample (subMap.h:1161-1197): keep each valid point with
+    probability `keep_ratio`, uniforms from `generator` (on the mask's
+    device)."""
+    u = torch.rand(mask.shape, generator=generator, device=mask.device)
+    return mask & (u < keep_ratio)
+
+
+def fixed_count_downsample_mask(mask: torch.Tensor, target: int,
+                                generator: torch.Generator) -> torch.Tensor:
+    """Fixed-number downsample (subMap.h:1199-1230): keep ~target points,
+    uniformly at random among the valid ones (ratio min(1, target /
+    max(n, 1)), computed on the device: no host sync)."""
+    n = torch.sum(mask.to(torch.int32)).clamp(min=1).to(torch.float32)
+    ratio = torch.clamp(target / n, max=1.0)
+    u = torch.rand(mask.shape, generator=generator, device=mask.device)
+    return mask & (u < ratio)
 
 
 def _merge_stacked(poses, xyz, mask, leaf: float, capacity: int):
