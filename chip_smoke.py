@@ -150,7 +150,12 @@ projection runs after K2, recipe last):
               parameters 2e-3 x lr where the gradient is above 5% of its
               leaf's largest), then five bf16 steps (the loss falls; ms a
               step, peak memory per rank); (d) the port's
-              dryrun_multichip(4) over gloo (data 1 x model 2 x space 2).
+              dryrun_multichip(4) over gloo (data 1 x model 2 x space 2),
+              three calls with bit-identical losses and poses; (e)
+              cuDNN's bf16 conv and transposed conv at RangeNet's narrowest
+              widths (one output column, where torch's CPU bf16 kernel
+              reads unwritten memory): exact zeros on zero inputs, within
+              one bf16 ulp of the float32 conv rounded once on random ones.
  19. projection - ops/projection.py project + extract (the unfused pair)
               on a full HDL-64 plaza scan (64 x 1800, P = 115200) with its
               labels in the rel_time channel: the card against the host
@@ -3617,6 +3622,17 @@ SHARD_F64_RTOL = 1e-6  # float64: loss, grad norm, every gradient leaf
 SHARD_BF16_STEPS = 5
 # (model_parallel, spatial_parallel) of each mesh over the spawn's world
 SHARD_MESHES = {1: ((1, 1),), 2: ((1, 1), (2, 1), (1, 2))}
+DRYRUN_REPEATS = 3  # dryrun_multichip(4) calls, bit-identical results
+# (kind, input shape, kernel shape, padding) of RangeNet's narrowest bf16
+# convolutions: the encoder's stride-(1, 2) 3 x 3 conv as _conv_sharded
+# calls it (one output column at widths 3 and 4, where torch's CPU bf16
+# kernel reads unwritten memory) and the decoder's transposed conv on 1
+# local column with its halo (padding 3) and on 2 columns (padding 1)
+NARROW_CONVS = tuple(("conv", (1, 48, 66, w), (64, 48, 3, 3), (0, 0))
+                     for w in (3, 4, 8, 64)) + tuple(
+    ("deconv", (1, 128, 64, w), (128, 48, 1, 4), (0, p))
+    for w, p in ((3, 3), (2, 1)))
+NARROW_ZERO_CALLS = 20  # zero-input calls a shape, each after a random one
 
 
 def _train_inputs(full):
@@ -3838,6 +3854,55 @@ def _shard_rank(rank, mesh, clouds, cfg):
     return out
 
 
+def _narrow_convs(dev):
+    """cuDNN's bf16 F.conv2d / F.conv_transpose2d at NARROW_CONVS: exact
+    zeros on a zero input in each of NARROW_ZERO_CALLS calls (each after a
+    call on random inputs, so the allocator hands back written memory);
+    on random inputs within one bf16 ulp of the float32 convolution
+    rounded once to bf16 (the port's CPU path, rangenet._conv), the ulp
+    taken at the sum of the magnitudes of each value's terms; and the
+    port's _conv on the card is cuDNN's call, bit for bit. Returns one
+    row a shape."""
+    import torch
+    import torch.nn.functional as F
+    from lis_slam_torch.models import rangenet as rn
+
+    r = np.random.default_rng(7)
+    rows = []
+    for kind, xs, ws, pad in NARROW_CONVS:
+        transposed = kind == "deconv"
+        conv = F.conv_transpose2d if transposed else F.conv2d
+        x = torch.from_numpy(r.normal(size=xs).astype(np.float32)).bfloat16()
+        w = torch.from_numpy((r.normal(size=ws) / np.sqrt(np.prod(ws[1:])))
+                             .astype(np.float32)).bfloat16()
+        xd, wd = x.to(dev), w.to(dev)
+        zero = torch.zeros_like(xd)
+        nonzero = 0
+        for _ in range(NARROW_ZERO_CALLS):
+            y = conv(xd, wd, None, (1, 2), pad)
+            nonzero += int(torch.count_nonzero(conv(zero, wd, None, (1, 2),
+                                                    pad)))
+        same = torch.equal(rn._conv(xd, wd, None, (1, 2), pad, transposed),
+                           y)
+        ref = rn._conv(x, w, None, (1, 2), pad, transposed)
+        mags = conv(x.double().abs(), w.double().abs(), None, (1, 2),
+                    pad).numpy()
+        _, e = np.frexp(mags)
+        ulp = np.where(mags > 0, np.ldexp(1.0, e - 8), 0.0)
+        got = y.cpu()
+        err = (got.double() - ref.double()).abs().numpy()
+        rows.append(dict(kind=kind, x=list(xs), out_w=int(got.shape[3]),
+                         zero_nonzero=nonzero, port_is_cudnn=same,
+                         over_ulp=int((err > ulp).sum()),
+                         max_err_ulps=float((err / np.maximum(ulp, 1e-300))
+                                            .max()),
+                         bit_equal=float((got == ref).float().mean())))
+        check(got.shape == ref.shape and nonzero == 0 and same
+              and rows[-1]["over_ulp"] == 0,
+              f"sharded: cuDNN's bf16 {kind} at {xs} pad {pad}: {rows[-1]}")
+    return rows
+
+
 def phase_sharded(clouds, gt, cfg, dev, out_dir):
     """The multi-device layer on the one card: (a) a world of one on NCCL,
     (b) + (c) two ranks sharing the card over gloo, (d) the port's
@@ -3926,19 +3991,37 @@ def phase_sharded(clouds, gt, cfg, dev, out_dir):
         check(bool(np.isfinite(tr["losses"]).all())
               and tr["losses"][-1] < tr["losses"][0],
               f"sharded: bf16 loss did not fall ({tr['losses']})")
-    t = time.perf_counter()
-    dry = entry.dryrun_multichip(4, device=dev, backend="gloo")
-    t4 = time.perf_counter() - t
-    log("sharded", f"(d) dryrun_multichip(4) over gloo on the card: mesh "
-        f"{dry['mesh']}, loss {dry['loss']:.4f}, poses (4, 6) finite; "
-        f"{t4:.1f} s")
+    dries, walls = [], []
+    for _ in range(DRYRUN_REPEATS):
+        t = time.perf_counter()
+        dries.append(entry.dryrun_multichip(4, device=dev, backend="gloo"))
+        walls.append(time.perf_counter() - t)
+    dry = dries[0]
+    log("sharded", f"(d) dryrun_multichip(4) over gloo on the card, "
+        f"{DRYRUN_REPEATS} calls: mesh {dry['mesh']}, losses "
+        f"{[d['loss'] for d in dries]}, poses (4, 6) finite; "
+        f"{', '.join(f'{x:.1f}' for x in walls)} s")
+    check(all(d["loss"] == dry["loss"]
+              and d["poses"].tobytes() == dry["poses"].tobytes()
+              for d in dries),
+          "sharded: dryrun_multichip(4) calls differ: "
+          f"{[(d['loss'], d['poses'].tolist()) for d in dries]}")
+    narrow = _narrow_convs(dev)
+    for row in narrow:
+        log("sharded", f"(e) cuDNN bf16 {row['kind']} input {row['x']} -> "
+            f"{row['out_w']} columns: zero input {row['zero_nonzero']} "
+            f"nonzero values in {NARROW_ZERO_CALLS} calls; random input "
+            f"within {row['max_err_ulps']:.3g} bf16 ulp of the float32 conv "
+            f"rounded once ({row['bit_equal']:.4f} bit-equal), the port's "
+            f"_conv is cuDNN's call: {row['port_is_cudnn']}")
     with open(os.path.join(out_dir, "sharded.json"), "w") as f:
         json.dump(dict(gap_m=gap, ate=ates, launches_w1=w1["launches"],
                        launches_w2=w2["launches"],
                        train={f"w{w} {k}": v for w, res in
                               ((1, w1), (SHARD_RANKS, w2))
                               for k, v in res["train"].items()},
-                       dryrun_loss=dry["loss"]), f, default=str)
+                       dryrun_losses=[d["loss"] for d in dries],
+                       narrow_convs=narrow), f, default=str)
     launches = {"sharded_w1_r0": tuple(w1["launches"][0])}
     launches.update({f"sharded_w{SHARD_RANKS}_r{r}": tuple(c)
                      for r, c in enumerate(w2["launches"])})

@@ -60,6 +60,14 @@ def _small_slam_config() -> SlamConfig:
             hash_table_slots=1 << 10, min_valid_points=10))
 
 
+def _where(rank: int, mesh) -> str:
+    """This rank and its coordinates on `mesh`, as "rank r at (data d,
+    model m, ...)"."""
+    coords = ", ".join(f"{name} {c}" for name, c in
+                       zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    return f"rank {rank} at ({coords})"
+
+
 def _dryrun_rank(rank: int, world_mesh, semantic: SemanticConfig | None):
     n = world_mesh.size()
     dev_type = world_mesh.device_type
@@ -85,7 +93,8 @@ def _dryrun_rank(rank: int, world_mesh, semantic: SemanticConfig | None):
     mask = pl_sh(torch.ones(shape, dtype=torch.bool, device=device))
     loss = float(step(images, labels, mask)["loss"])
     if not np.isfinite(loss):
-        raise RuntimeError(f"dryrun: sharded training loss {loss}")
+        raise RuntimeError(f"dryrun: {_where(rank, mesh)}: sharded training "
+                           f"loss {loss}")
     del model, opt, step
 
     # the full uniform odometry step over n lanes sharded over 'data'
@@ -107,7 +116,8 @@ def _dryrun_rank(rank: int, world_mesh, semantic: SemanticConfig | None):
         states, outs = ostep(states, scans)
     poses = lanes.gather(outs.pose).cpu().numpy()
     if poses.shape != (n, 6) or not np.all(np.isfinite(poses)):
-        raise RuntimeError(f"dryrun: poses {poses.shape} not finite (n, 6)")
+        raise RuntimeError(f"dryrun: {_where(rank, seq_mesh)}: poses "
+                           f"{poses.shape} not finite (n, 6)")
     return {"loss": loss, "poses": poses,
             "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
 

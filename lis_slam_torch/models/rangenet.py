@@ -26,8 +26,13 @@ flax's scope names (`Darknet53Encoder_0`, `UpBlock_2`, `Conv_0`, ...), so
 a flax parameter path is a state_dict key; `expected_layer_sequence`
 lists them in graph order.
 
-The convolutions are cuDNN calls (F.conv2d / F.conv_transpose2d): the JAX
-package leaves them to XLA, with no Pallas kernel on this path.
+The convolutions are cuDNN calls (F.conv2d / F.conv_transpose2d; the JAX
+package leaves them to XLA, with no Pallas kernel) on the card, and on the
+CPU a bf16 convolution runs in float32 and is rounded once to bf16, as
+JAX's CPU convolution is (`_conv`), because torch's CPU bf16 kernel reads
+unwritten memory where a stride-(1, 2) conv leaves one output column
+(garbage up to NaN at 3- and 4-column inputs, scripts/
+cpu_bf16_conv_check.py, and a NaN loss in the 4-rank sharded dryrun).
 
 Training (train/seg_train.py) runs the module in train mode with
 `param_dtype` float32: the parameters stay float32 and each convolution
@@ -61,6 +66,19 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _conv(x: torch.Tensor, w: torch.Tensor, bias=None, stride=1, padding=0,
+          transposed: bool = False) -> torch.Tensor:
+    """F.conv2d, or F.conv_transpose2d when `transposed`, of x and w (one
+    dtype). A bf16 convolution on the CPU runs on the float32 values and
+    rounds its result once to bf16, which is JAX's CPU answer; everywhere
+    else the call is the plain one."""
+    conv = F.conv_transpose2d if transposed else F.conv2d
+    if x.dtype != torch.bfloat16 or x.device.type != "cpu":
+        return conv(x, w, bias, stride, padding)
+    return conv(x.float(), w.float(), bias, stride, padding).to(
+        torch.bfloat16)
+
+
 def _conv_same(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """`conv` with "SAME" padding, its kernel cast to x's dtype; asymmetric
     pads (the strided convs) go through F.pad, symmetric ones into the
@@ -69,8 +87,8 @@ def _conv_same(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
                                      conv.stride[i]) for i in range(2))
     w = conv.weight.to(x.dtype)
     if hl == hh and wl == wh:
-        return F.conv2d(x, w, conv.bias, conv.stride, (hl, wl))
-    return F.conv2d(F.pad(x, (wl, wh, hl, hh)), w, conv.bias, conv.stride)
+        return _conv(x, w, conv.bias, conv.stride, (hl, wl))
+    return _conv(F.pad(x, (wl, wh, hl, hh)), w, conv.bias, conv.stride)
 
 
 def _batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
@@ -188,13 +206,13 @@ class UpBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         t = self.ConvTranspose_0
-        x = F.conv_transpose2d(x.to(self.dtype), t.weight.to(self.dtype),
-                               None, t.stride, t.padding)
+        x = _conv(x.to(self.dtype), t.weight.to(self.dtype), None, t.stride,
+                  t.padding, transposed=True)
         x = F.leaky_relu(_batch_norm(self.BatchNorm_0, x.float()), 0.1)
         x = self.ConvBnLeaky_0(x)
         if hasattr(self, "Conv_0"):
-            skip = F.conv2d(skip.to(self.dtype),
-                            self.Conv_0.weight.to(self.dtype))
+            skip = _conv(skip.to(self.dtype),
+                         self.Conv_0.weight.to(self.dtype))
         return x + skip
 
 
@@ -475,20 +493,20 @@ def _conv_sharded(conv, x: torch.Tensor, sh: _Sharding) -> torch.Tensor:
     w = conv.weight.to(x.dtype)
     if sh.space.size == 1:
         if transposed:
-            return F.conv_transpose2d(x, w, None, conv.stride, conv.padding)
+            return _conv(x, w, None, conv.stride, conv.padding, True)
         return _conv_same(conv, x)
     k, s = conv.kernel_size[1], conv.stride[1]
     if transposed:
         if (k, s, conv.padding[1]) != (4, 2, 1):
             raise ValueError("forward_sharded: a transposed conv other than "
                              "kernel 4, stride 2, padding 1 over 'space'")
-        return F.conv_transpose2d(_Halo.apply(x, sh.space, 1, 1), w, None,
-                                  conv.stride, (conv.padding[0], 1 + s))
+        return _conv(_Halo.apply(x, sh.space, 1, 1), w, None, conv.stride,
+                     (conv.padding[0], 1 + s), True)
     left, _ = _same_pads(x.shape[3] * sh.space.size, k, s)
     if k > 1:
         x = _Halo.apply(x, sh.space, left, k - s - left)
     hl, hh = _same_pads(x.shape[2], conv.kernel_size[0], conv.stride[0])
-    return F.conv2d(F.pad(x, (0, 0, hl, hh)), w, conv.bias, conv.stride)
+    return _conv(F.pad(x, (0, 0, hl, hh)), w, conv.bias, conv.stride)
 
 
 def _batch_norm_sharded(bn: nn.BatchNorm2d, x: torch.Tensor,

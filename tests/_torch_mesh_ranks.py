@@ -1,13 +1,15 @@
 """Rank functions of the multi-process tests (tests/test_torch_parallel.py,
-tests/test_torch_sharded_train.py), started by
-lis_slam_torch.parallel.mesh.spawn. They live apart from the test modules
-so that the rank processes import torch and the port only, never JAX."""
+tests/test_torch_sharded_train.py, tests/test_torch_conv_cpu.py), started
+by lis_slam_torch.parallel.mesh.spawn. They live apart from the test
+modules so that the rank processes import torch and the port only, never
+JAX (but for dryrun_with_jaxlib, which loads jaxlib on purpose)."""
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from lis_slam_torch import entry
 from lis_slam_torch.models import rangenet as rn
 from lis_slam_torch.parallel import batched
 from lis_slam_torch.parallel import mesh as pmesh
@@ -183,3 +185,15 @@ def conv_reference(kind, x, w, g):
         y = F.conv2d(x, w, padding=1)
     (y * g).sum().backward()
     return y.detach(), x.grad, w.grad
+
+
+def dryrun_with_jaxlib(rank, world_mesh, cfg):
+    """entry.dryrun_multichip's rank with jaxlib loaded into the process
+    first. Loading it moves what lies in the memory torch's CPU bf16
+    convolution read where a stride-2 conv leaves one output column: the
+    sharded step's loss came out NaN in every call before the port's bf16
+    convolutions ran in float32 on the CPU. The import stays here, in
+    the body: the rank processes of the other tests load no JAX."""
+    import jax  # noqa: F401
+
+    return entry._dryrun_rank(rank, world_mesh, cfg)

@@ -110,13 +110,15 @@ def _imported_modules(path: Path):
 
 def test_port_imports_no_jax():
     """No module of lis_slam_torch/ (run_kitti.py and train/recipe.py
-    included), not chip_smoke.py and not the recipe's CLI
-    scripts/train_rangenet_synthetic_torch.py imports jax, flax, optax or
+    included), not chip_smoke.py, not the recipe's CLI
+    scripts/train_rangenet_synthetic_torch.py and not
+    scripts/cpu_bf16_conv_check.py imports jax, flax, optax or
     lis_slam_tpu."""
     pkg = Path(lis_slam_torch.__file__).parent
     files = sorted(pkg.rglob("*.py"))
     files += [_REPO / "chip_smoke.py",
-              _REPO / "scripts" / "train_rangenet_synthetic_torch.py"]
+              _REPO / "scripts" / "train_rangenet_synthetic_torch.py",
+              _REPO / "scripts" / "cpu_bf16_conv_check.py"]
     assert any(f.name == "run_kitti.py" for f in files)
     assert pkg / "train" / "recipe.py" in files
     assert all(f.is_file() for f in files)
