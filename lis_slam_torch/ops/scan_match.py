@@ -26,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import MatchingConfig
-from ..utils import lin, se3
+from ..utils import lin, profiling, se3
 from . import knn_cuda
 from .voxel import _SENTINEL, _voxel_key_morton, lane_sort
 
@@ -269,7 +269,8 @@ def scan_to_map(pose0: torch.Tensor,
     it was built. Returns a GNState whose pose lies on pose0's device.
 
     Host syncs: one per iteration (the normal equations), at most
-    `max_iterations`."""
+    `max_iterations`. The iterations add to the counter "gn_iterations"
+    (utils/profiling.py)."""
     if cache_k is None:
         cache_k = cfg.nn_cache_k
     if cache_refresh_dist is None:
@@ -315,6 +316,7 @@ def scan_to_map(pose0: torch.Tensor,
         st = GNState(pose=new_pose, proj=proj, degenerate=degen,
                      converged=conv, n_valid=n_valid, it=st.it + 1,
                      delta_r=d_r, delta_t=d_t)
+    profiling.count("gn_iterations", st.it)
     return st._replace(pose=st.pose.to(pose0.device))
 
 

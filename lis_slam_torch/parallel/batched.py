@@ -25,7 +25,7 @@ import torch
 
 from ..config import SlamConfig
 from ..pipeline import driver, odometry
-from ..utils import device as devices
+from ..utils import device as devices, profiling
 from . import mesh as pmesh
 
 
@@ -111,7 +111,13 @@ def replay_batched(sequences, cfg: SlamConfig, mesh=None,
     scan 0 always merges so the map is seeded). With a parallel/mesh.py
     `mesh` (called on every rank) each rank replays its block of the
     lanes (B must divide over 'data') and every rank returns all B lanes'
-    poses, gathered once after the last scan."""
+    poses, gathered once after the last scan.
+
+    Spans (utils/profiling.py): root "replay_batched", per step
+    "lane_upload" (pad and stack the lanes' scans) and "lane_step", and
+    "gather"; the counter "scans" adds this rank's lanes a step. The step
+    never waits on the device; the uploads of host clouds do (blocking
+    copies: 7 waits a lane a step on an H100)."""
     device = devices.resolve(device)
     batch = len(sequences)
     n = min(len(s) for s in sequences)
@@ -123,13 +129,19 @@ def replay_batched(sequences, cfg: SlamConfig, mesh=None,
                          f"{data.size} 'data' ranks")
     per = batch // data.size
     sequences = sequences[data.index * per:(data.index + 1) * per]
-    states = batched_init_state(cfg, per, device)
-    poses = []
-    for i in range(n):
-        scans = stack_scans([_as_scan(seq[i], cfg, device)
-                             for seq in sequences])
-        states, outs = step(states, scans, allow_kf=(i % kf_every == 0))
-        poses.append(outs.pose)
-    if not poses:
-        return np.zeros((batch, 0, 6), np.float32)
-    return lanes.gather(torch.stack(poses, dim=1)).cpu().numpy()
+    with profiling.root(profiling.StageTimer(), "replay_batched"):
+        states = batched_init_state(cfg, per, device)
+        poses = []
+        for i in range(n):
+            profiling.count("scans", per)
+            with profiling.span("lane_upload"):
+                scans = stack_scans([_as_scan(seq[i], cfg, device)
+                                     for seq in sequences])
+            with profiling.span("lane_step"):
+                states, outs = step(states, scans,
+                                    allow_kf=(i % kf_every == 0))
+            poses.append(outs.pose)
+        if not poses:
+            return np.zeros((batch, 0, 6), np.float32)
+        with profiling.span("gather"):
+            return lanes.gather(torch.stack(poses, dim=1)).cpu().numpy()

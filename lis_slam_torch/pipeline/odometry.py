@@ -34,7 +34,7 @@ from ..config import SlamConfig
 from ..ops import features as feat_ops
 from ..ops import deskew, pretreatment, projection, scan_match
 from ..ops import velocity_deskew, voxel
-from ..utils import device as devices, se3
+from ..utils import device as devices, profiling, se3
 
 
 class OdomState(NamedTuple):
@@ -243,17 +243,23 @@ def odom_step(state: OdomState, scan: ScanInput,
     The state may be updated in place, the counterpart of the JAX step's
     donation: thread the returned state, `state, out = odom_step(state,
     scan, cfg)`, and do not reuse the old one (clone it first to step twice
-    from one state). The step waits on the device several times per GN
-    iteration (the 6x6 solve and the loop control run on the host) and a
-    few times per scan for the keyframe bookkeeping."""
+    from one state). The step waits on the device once per GN iteration
+    (the 6x6 solve and the loop control run on the host), three times per
+    scan around the solve, four times elsewhere in the step, once for the
+    keyframe gate and about twelve times more on a keyframe for the map
+    merge; the preprocessing does not wait (utils/profiling.py's
+    host_syncs counter by span, on an H100 over the HDL-64 plaza lap and
+    the VLP-16 circuit)."""
     state, out, _fc, _ext = _odom_step_impl(state, scan, cfg)
     return state, out
 
 
 def _odom_step_impl(state: OdomState, scan: ScanInput, cfg: SlamConfig):
     """odom_step, returning (state, out, feature clouds, extracted
-    cloud)."""
-    fc, ext = preprocess(scan, cfg, return_ext=True)
+    cloud). Spans (utils/profiling.py): "preprocess", "scan_to_map" and
+    "kf_map_insert" (the keyframe gate and the map merge)."""
+    with profiling.span("preprocess"):
+        fc, ext = preprocess(scan, cfg, return_ext=True)
 
     # ---- initial guess cascade (updateInitialGuess :297-419):
     # external guess > constant velocity > hold ----
@@ -270,11 +276,12 @@ def _odom_step_impl(state: OdomState, scan: ScanInput, cfg: SlamConfig):
             guess = torch.cat([scan.imu_rpy[:2].to(guess), state.pose[2:]])
 
     # ---- scan-to-map optimization (:596-626) ----
-    gn = scan_match.scan_to_map(
-        guess, *_matched_clouds(fc, cfg),
-        state.map_corner, state.map_corner_mask,
-        state.map_surf, state.map_surf_mask,
-        cfg.matching, cfg.matching.max_iterations_frontend)
+    with profiling.span("scan_to_map"):
+        gn = scan_match.scan_to_map(
+            guess, *_matched_clouds(fc, cfg),
+            state.map_corner, state.map_corner_mask,
+            state.map_surf, state.map_surf_mask,
+            cfg.matching, cfg.matching.max_iterations_frontend)
     pose = guess if first else gn.pose
 
     # IMU roll/pitch slerp fusion (transformUpdate :979-1001)
@@ -296,9 +303,10 @@ def _odom_step_impl(state: OdomState, scan: ScanInput, cfg: SlamConfig):
                       se3.constrain_angle(pose[5:], zt)])
 
     # ---- keyframe insert + map update (saveKeyFrames) ----
-    is_kf = _keyframe_gate(pose, state.last_kf_pose, kf_count, gn, cfg)
-    if is_kf:
-        state = _insert_keyframe(state, fc, pose, cfg)
+    with profiling.span("kf_map_insert"):
+        is_kf = _keyframe_gate(pose, state.last_kf_pose, kf_count, gn, cfg)
+        if is_kf:
+            state = _insert_keyframe(state, fc, pose, cfg)
 
     # ---- velocity model update ----
     T_new = se3.pose_to_matrix(pose)

@@ -38,7 +38,6 @@ dumps the rviz-equivalent files (viz/debug.py).
 
 from __future__ import annotations
 
-import contextlib
 import warnings
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -264,7 +263,7 @@ def _imu_reset(fstate: FusedState, cfg: SlamConfig) -> FusedState:
 def slam_step(fstate: FusedState, scan: odometry.ScanInput,
               lab_raw: torch.Tensor | None, cfg: SlamConfig, lab_mode: str,
               model=None, infer_cfg: SlamConfig | None = None,
-              imu_window: ImuWindow | None = None, timer=None):
+              imu_window: ImuWindow | None = None):
     """One scan: the front-end step, and on keyframes the semantic
     refinement (lab_mode "gt": labels from `lab_raw`, per raw point;
     "infer": labels inferred by the RangeNet `model` under `infer_cfg` on
@@ -273,8 +272,9 @@ def slam_step(fstate: FusedState, scan: odometry.ScanInput,
 
     With cfg.imu.use_imu and a state holding the IMU fields, the LIO chain
     runs around the front-end step on `imu_window` (default: the window
-    the scan carries, read to the host); a `timer` (StageTimer) charges it
-    to stage "imu_chain".
+    the scan carries, read to the host), in span "imu_chain". The
+    keyframe work after the front end is span "kf_semantic", with spans
+    "rangenet", "semantic_refine" and "descriptors" (utils/profiling.py).
 
     The JAX package infers on a second projection of the pretreated,
     undeskewed scan; the front end's projection holds the same winners
@@ -287,12 +287,12 @@ def slam_step(fstate: FusedState, scan: odometry.ScanInput,
     use_lio = cfg.imu.use_imu and fstate.imu is not None
     imu_out = {}
     if use_lio:
-        with _stage(timer):
+        with profiling.span("imu_chain"):
             scan, chain = _lio_pre(
                 fstate, scan, imu_window or _scan_window(scan, cfg), cfg)
     odom2, out, fc, ext = odometry._odom_step_impl(fstate.odom, scan, cfg)
     if use_lio:
-        with _stage(timer):
+        with profiling.span("imu_chain"):
             fstate = fstate._replace(**_lio_post(fstate, out.pose, chain,
                                                  cfg))
         imu_out = dict(imu_fail=fstate.imu_fail,
@@ -311,55 +311,55 @@ def slam_step(fstate: FusedState, scan: odometry.ScanInput,
         return fstate._replace(odom=odom2), StepOut(
             pose=out.pose, refined=out.pose, **flags, **clouds, **imu_out)
 
-    sem, lf, lr = fstate.sem, fstate.last_frontend, fstate.last_refined
-    dev = out.pose.device
-    qk = cfg.submap.keyframe_class_capacity
-    if lab_mode == "infer":
-        # RangeNet reads the front end's projection; only its winners get
-        # labels, which is all the gathers below read
-        lab_raw = sem_inf.infer_winner_labels(model, ext,
-                                              scan.points.shape[0], infer_cfg)
-    if lab_mode != "none":
-        # the front end's projection carries each slot's raw index, so the
-        # labels gather onto the grid without a second projection
-        sscan = semo.semantic_scan_from_ext(ext, lab_raw, cfg)
-        if int(sem.kf_count) == 0:
-            guess = out.pose
+    with profiling.span("kf_semantic"):
+        sem, lf, lr = fstate.sem, fstate.last_frontend, fstate.last_refined
+        dev = out.pose.device
+        qk = cfg.submap.keyframe_class_capacity
+        if lab_mode == "infer":
+            # RangeNet reads the front end's projection; only its winners
+            # get labels, which is all the gathers below read
+            with profiling.span("rangenet"):
+                lab_raw = sem_inf.infer_winner_labels(
+                    model, ext, scan.points.shape[0], infer_cfg)
+        if lab_mode != "none":
+            with profiling.span("semantic_refine"):
+                # the front end's projection carries each slot's raw index,
+                # so the labels gather onto the grid without a second
+                # projection
+                sscan = semo.semantic_scan_from_ext(ext, lab_raw, cfg)
+                if int(sem.kf_count) == 0:
+                    guess = out.pose
+                else:
+                    T_inc = (se3.pose_to_matrix(out.pose)
+                             @ se3.transform_inverse(se3.pose_to_matrix(lf)))
+                    guess = se3.matrix_to_pose(T_inc @ se3.pose_to_matrix(lr))
+                sem, refined, _gn = semo.refine_step(sem, sscan, guess, cfg)
+                src = fc.surf_src
+                lab = lab_raw[torch.clamp(src, 0, lab_raw.shape[0] - 1).long()]
+                lab_surf = torch.where(src >= 0, lab,
+                                       torch.zeros_like(lab)).to(torch.int32)
+                class_xyz, class_mask = sscan.class_xyz, sscan.class_mask
+                class_w = sscan.class_w
         else:
-            T_inc = (se3.pose_to_matrix(out.pose)
-                     @ se3.transform_inverse(se3.pose_to_matrix(lf)))
-            guess = se3.matrix_to_pose(T_inc @ se3.pose_to_matrix(lr))
-        sem, refined, _gn = semo.refine_step(sem, sscan, guess, cfg)
-        src = fc.surf_src
-        lab = lab_raw[torch.clamp(src, 0, lab_raw.shape[0] - 1).long()]
-        lab_surf = torch.where(src >= 0, lab, torch.zeros_like(lab)).to(
-            torch.int32)
-        class_xyz, class_mask = sscan.class_xyz, sscan.class_mask
-        class_w = sscan.class_w
-    else:
-        refined = out.pose
-        lab_surf = torch.zeros(fc.surf_xyz.shape[0], dtype=torch.int32,
-                               device=dev)
-        class_xyz = torch.zeros((5, qk, 3), device=dev)
-        class_mask = torch.zeros((5, qk), dtype=torch.bool, device=dev)
-        class_w = torch.ones((5, qk), device=dev)
-    desc = epsc.compute_descriptors(
-        fc.surf_xyz, fc.surf_intensity, lab_surf, fc.surf_mask,
-        fc.sharp_corner_xyz, fc.sharp_corner_mask,
-        fc.sharp_surf_xyz, fc.sharp_surf_mask, cfg.loop)
+            refined = out.pose
+            lab_surf = torch.zeros(fc.surf_xyz.shape[0], dtype=torch.int32,
+                                   device=dev)
+            class_xyz = torch.zeros((5, qk, 3), device=dev)
+            class_mask = torch.zeros((5, qk), dtype=torch.bool, device=dev)
+            class_w = torch.ones((5, qk), device=dev)
+        with profiling.span("descriptors"):
+            desc = epsc.compute_descriptors(
+                fc.surf_xyz, fc.surf_intensity, lab_surf, fc.surf_mask,
+                fc.sharp_corner_xyz, fc.sharp_corner_mask,
+                fc.sharp_surf_xyz, fc.sharp_surf_mask, cfg.loop)
+            desc_sel = epsc.select_descriptor(desc, cfg.loop.descriptor)
     new_state = fstate._replace(odom=odom2, sem=sem, last_frontend=out.pose,
                                 last_refined=refined)
     return new_state, StepOut(
         pose=out.pose, refined=refined, **flags, **clouds,
         lab_surf=lab_surf, class_xyz=class_xyz, class_mask=class_mask,
-        class_w=class_w,
-        desc_sel=epsc.select_descriptor(desc, cfg.loop.descriptor),
-        signature=desc.signature, **imu_out)
-
-
-def _stage(timer):
-    return (timer.stage("imu_chain") if timer is not None
-            else contextlib.nullcontext())
+        class_w=class_w, desc_sel=desc_sel, signature=desc.signature,
+        **imu_out)
 
 
 def _register_submaps_geo(prev_corner, prev_corner_mask, prev_surf,
@@ -596,51 +596,54 @@ class SemanticSlam:
         `imu_gyro`, `imu_accel`: raw IMU frame, absolute seconds; optional
         `imu_rpy`, the orientation at scan start): the LIO chain runs on
         it, with the timestamp as the scan's start stamp on that clock."""
-        cfg = self.cfg
-        imu_supplied = (cfg.imu.use_imu and imu_time is not None
-                        and len(imu_time) > 0)
-        if timestamp is not None:
-            t = timestamp
-        elif imu_supplied:
-            # the preintegration window is clipped to [prev_scan_start,
-            # scan_start]: the scan's stamp must come from the IMU clock,
-            # or the clipped window collapses and the chain is inert
-            t = float(imu_time[0])
-        else:
-            t = self._scan_idx * cfg.sensor.scan_period
-        window = None
-        if imu_supplied:
-            window = ImuWindow(*driver.pad_imu_window(cfg, imu_time, imu_gyro,
-                                                      imu_accel), t)
-            if imu_rpy is not None:
-                rpy = pi.remap_imu_orientation(imu_rpy, cfg.imu)
-                scan = scan._replace(
-                    imu_rpy=torch.tensor(rpy, dtype=torch.float32,
-                                         device=self.device),
-                    imu_rpy_valid=True)
-        if gt_labels is not None:
-            buf = np.zeros(self.cfg.sensor.max_raw_points, np.int32)
-            n = min(len(gt_labels), len(buf))
-            buf[:n] = np.asarray(gt_labels)[:n]
-            lab_raw = torch.from_numpy(buf).to(self.device)
-            lab_mode = "gt"
-        elif self.model is not None:
-            lab_raw, lab_mode = None, "infer"
-        else:
-            lab_raw, lab_mode = None, "none"
-        if lab_mode != "none":
-            self.collector.merge_classes = True
-        with self.timer.stage("odom_step"):
-            self.fstate, out = slam_step(
-                self.fstate, scan, lab_raw, cfg, lab_mode, self.model,
-                self._infer_cfg, imu_window=window, timer=self.timer)
-        self._pending.append(_PendingScan(self._scan_idx, t, out,
-                                          imu_supplied))
-        self._scan_idx += 1
-        if len(self._pending) >= max(1, self.cfg.runtime.drain_every):
-            with self.timer.stage("drain"):
-                self._drain()
-        return out.pose
+        with profiling.root(self.timer, "process_scan",
+                            scan=self._scan_idx):
+            profiling.count("scans")
+            cfg = self.cfg
+            imu_supplied = (cfg.imu.use_imu and imu_time is not None
+                            and len(imu_time) > 0)
+            if timestamp is not None:
+                t = timestamp
+            elif imu_supplied:
+                # the preintegration window is clipped to [prev_scan_start,
+                # scan_start]: the scan's stamp must come from the IMU clock,
+                # or the clipped window collapses and the chain is inert
+                t = float(imu_time[0])
+            else:
+                t = self._scan_idx * cfg.sensor.scan_period
+            window = None
+            if imu_supplied:
+                window = ImuWindow(*driver.pad_imu_window(
+                    cfg, imu_time, imu_gyro, imu_accel), t)
+                if imu_rpy is not None:
+                    rpy = pi.remap_imu_orientation(imu_rpy, cfg.imu)
+                    scan = scan._replace(
+                        imu_rpy=torch.tensor(rpy, dtype=torch.float32,
+                                             device=self.device),
+                        imu_rpy_valid=True)
+            if gt_labels is not None:
+                buf = np.zeros(self.cfg.sensor.max_raw_points, np.int32)
+                n = min(len(gt_labels), len(buf))
+                buf[:n] = np.asarray(gt_labels)[:n]
+                lab_raw = torch.from_numpy(buf).to(self.device)
+                lab_mode = "gt"
+            elif self.model is not None:
+                lab_raw, lab_mode = None, "infer"
+            else:
+                lab_raw, lab_mode = None, "none"
+            if lab_mode != "none":
+                self.collector.merge_classes = True
+            with self.timer.stage("odom_step"):
+                self.fstate, out = slam_step(
+                    self.fstate, scan, lab_raw, cfg, lab_mode, self.model,
+                    self._infer_cfg, imu_window=window)
+            self._pending.append(_PendingScan(self._scan_idx, t, out,
+                                              imu_supplied))
+            self._scan_idx += 1
+            if len(self._pending) >= max(1, self.cfg.runtime.drain_every):
+                with self.timer.stage("drain"):
+                    self._drain()
+            return out.pose
 
     # ------------------------------------------------------------------
     def _drain(self):
@@ -1045,49 +1048,50 @@ class SemanticSlam:
     def finish(self, build_map: bool = False) -> SlamResult:
         """finishMap: flush the pipeline and the last submap, final
         optimization, trajectory correction (transformFusion)."""
-        self.flush_pipeline()
-        tail = self.collector.flush()
-        if tail is not None:
-            self._on_submap(tail)
+        with profiling.root(self.timer, "finish"):
             self.flush_pipeline()
-        self._flush_loop_factors()
-        if self.collector.submaps:
-            opt = self.graph.optimize()
-            for k, s in enumerate(self.collector.submaps):
-                s.pose_opt = opt[k]
-        raw = np.asarray(self.scan_poses, dtype=np.float64).reshape(-1, 6)
-        corrected = raw.copy()
-        kf_corr = {}
-        for kf in self.keyframes:
-            if kf.submap_id >= 0:
-                s = self.collector.submaps[kf.submap_id]
-                rel = np.linalg.inv(s.pose_init) @ kf.pose_init
-                kf_corr[kf.index] = s.pose_opt @ rel
-        # each scan takes the correction of its most recent keyframe
-        kf_ptr, delta = -1, np.eye(4)
-        for i in range(len(raw)):
-            while (kf_ptr + 1 < len(self.kf_scan_ids)
-                   and self.kf_scan_ids[kf_ptr + 1] <= i):
-                kf_ptr += 1
-                kf = self.keyframes[kf_ptr]
-                if kf.index in kf_corr:
-                    delta = kf_corr[kf.index] @ np.linalg.inv(kf.pose_init)
-            corrected[i] = se3_np.matrix_to_pose(
-                delta @ se3_np.pose_to_matrix(raw[i]))
-        global_map = None
-        if build_map and self.collector.submaps:
-            global_map = self.build_global_map()
-        if self.debug is not None:
-            self.debug.flush_loop_markers()
-            if global_map is not None:
-                self.debug.dump_cloud("global_map", global_map[:, :3],
-                                      global_map[:, 3].astype(np.int32))
-        return SlamResult(
-            poses=corrected, raw_poses=raw,
-            keyframe_ids=np.asarray(self.kf_scan_ids),
-            n_submaps=len(self.collector.submaps),
-            n_loops=self._n_loop_factors, global_map=global_map,
-            stage_ms={k: v.mean_ms for k, v in self.timer.stats.items()})
+            tail = self.collector.flush()
+            if tail is not None:
+                self._on_submap(tail)
+                self.flush_pipeline()
+            self._flush_loop_factors()
+            if self.collector.submaps:
+                opt = self.graph.optimize()
+                for k, s in enumerate(self.collector.submaps):
+                    s.pose_opt = opt[k]
+            raw = np.asarray(self.scan_poses, dtype=np.float64).reshape(-1, 6)
+            corrected = raw.copy()
+            kf_corr = {}
+            for kf in self.keyframes:
+                if kf.submap_id >= 0:
+                    s = self.collector.submaps[kf.submap_id]
+                    rel = np.linalg.inv(s.pose_init) @ kf.pose_init
+                    kf_corr[kf.index] = s.pose_opt @ rel
+            # each scan takes the correction of its most recent keyframe
+            kf_ptr, delta = -1, np.eye(4)
+            for i in range(len(raw)):
+                while (kf_ptr + 1 < len(self.kf_scan_ids)
+                       and self.kf_scan_ids[kf_ptr + 1] <= i):
+                    kf_ptr += 1
+                    kf = self.keyframes[kf_ptr]
+                    if kf.index in kf_corr:
+                        delta = kf_corr[kf.index] @ np.linalg.inv(kf.pose_init)
+                corrected[i] = se3_np.matrix_to_pose(
+                    delta @ se3_np.pose_to_matrix(raw[i]))
+            global_map = None
+            if build_map and self.collector.submaps:
+                global_map = self.build_global_map()
+            if self.debug is not None:
+                self.debug.flush_loop_markers()
+                if global_map is not None:
+                    self.debug.dump_cloud("global_map", global_map[:, :3],
+                                          global_map[:, 3].astype(np.int32))
+            return SlamResult(
+                poses=corrected, raw_poses=raw,
+                keyframe_ids=np.asarray(self.kf_scan_ids),
+                n_submaps=len(self.collector.submaps),
+                n_loops=self._n_loop_factors, global_map=global_map,
+                stage_ms={k: v.mean_ms for k, v in self.timer.stats.items()})
 
     def build_global_map(self) -> np.ndarray | None:
         """Labeled global map (visualizeGlobalMapThread): per-submap
