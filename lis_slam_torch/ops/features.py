@@ -192,11 +192,12 @@ def _sector_bounds(count: torch.Tensor, n_sectors: int):
             for j in range(n_sectors)]
 
 
-def _suppress_neighbors(picked, col_gap, ind, col_diff_limit):
+def _suppress_neighbors(picked, col_gap, ind, col_diff_limit, true):
     """Mark the +-5 compacted neighbors of `ind` (N,) in `picked` (N, H) as
     picked, each direction stopping at the first column gap >
     col_diff_limit (the reference's extractFeatures inner loops).
-    col_gap[:, i] = |col[i] - col[i-1]|."""
+    col_gap[:, i] = |col[i] - col[i-1]|; `true` a () bool True on the
+    device."""
     n, h = picked.shape
     rows = torch.arange(n, device=ind.device)[:, None]
     off = torch.arange(1, 6, device=ind.device)[None, :]
@@ -209,7 +210,7 @@ def _suppress_neighbors(picked, col_gap, ind, col_diff_limit):
         alive = torch.cummin((inside & (gap <= col_diff_limit)).to(
             torch.int32), dim=1).values.bool()
         # dead steps write to the spare column h
-        marks[rows, torch.where(alive, j, torch.full_like(j, h))] = True
+        marks[rows, torch.where(alive, j, torch.full_like(j, h))] = true
     return marks[:, :h]
 
 
@@ -229,14 +230,17 @@ def _select_rows_greedy(curv, picked, col, count, cfg: FeatureConfig):
     edge = curv > cfg.edge_threshold
     flat = curv < cfg.surf_threshold
     neg_big = torch.full_like(curv, -_BIG)
+    # the value of the marks' writes: a host True is copied to the card at
+    # every write, a copy that a CUDA graph cannot capture
+    true = torch.ones((), dtype=torch.bool, device=dev)
 
     def pick(score, picked):
         ind = torch.argmax(score, dim=1)  # first max, as jnp.argmax
         hit = score[rows, ind] > -_BIG
         new_picked = picked.clone()
-        new_picked[rows, ind] = True
+        new_picked[rows, ind] = true
         new_picked = _suppress_neighbors(new_picked, col_gap, ind,
-                                         cfg.occlusion_col_diff)
+                                         cfg.occlusion_col_diff, true)
         return ind, hit, torch.where(hit[:, None], new_picked, picked)
 
     for sp, ep in _sector_bounds(count, cfg.sectors_per_ring):

@@ -34,7 +34,7 @@ from ..config import SlamConfig
 from ..ops import features as feat_ops
 from ..ops import deskew, pretreatment, projection, scan_match
 from ..ops import velocity_deskew, voxel
-from ..utils import device as devices, profiling, se3
+from ..utils import device as devices, graphs, profiling, se3
 
 
 class OdomState(NamedTuple):
@@ -138,30 +138,73 @@ def preprocess(scan: ScanInput, cfg: SlamConfig, return_ext: bool = False):
     Returns the FeatureClouds, and with `return_ext` also the extracted
     cloud (its `src` column maps grid slots to raw points). A scan with
     lanes (see ScanInput) is preprocessed lane by lane in the same
-    launches, and every output gains the lane dim."""
-    pre = pretreatment.pretreat(scan.points, scan.valid, cfg.sensor)
-    pts = pre.points[..., :3]
+    launches, and every output gains the lane dim.
+
+    On the card the chain is replayed from CUDA graphs (utils/graphs.py),
+    each captured at its signature's first call: one graph from the
+    pretreatment to the features where the scan is not deskewed; where it
+    is, one of the pretreatment and one from the projection on, with the
+    deskew run eagerly between them (its inputs carry host values and
+    flags, which a graph would freeze). The results are the eager chain's
+    bit for bit, on memory of their own. While a profiler records, a call
+    counts `preprocess_replays` where replays gave all of it, else
+    `preprocess_eager` (utils/profiling.py)."""
+    if _deskewed(scan, cfg):
+        pre, replayed = graphs.replay(
+            "pretreat", lambda *a: _pretreat(*a, cfg.sensor),
+            (scan.points, scan.valid), cfg.sensor)
+        (fc, ext), replayed_b = graphs.replay(
+            "features", lambda *a: _features(*a, cfg),
+            (_deskew(pre, scan, cfg), *pre[1:]), (cfg.sensor, cfg.feature))
+        replayed &= replayed_b
+    else:
+        (fc, ext), replayed = graphs.replay(
+            "preprocess", lambda *a: _features(*_pretreat(*a, cfg.sensor),
+                                               cfg),
+            (scan.points, scan.valid), (cfg.sensor, cfg.feature))
+    profiling.count("preprocess_replays" if replayed else "preprocess_eager")
+    return (fc, ext) if return_ext else fc
+
+
+def _deskewed(scan: ScanInput, cfg: SlamConfig) -> bool:
+    """Whether preprocess deskews the scan: by cfg.imu and the fields the
+    scan carries."""
+    if cfg.imu.deskew_mode == "velocity":
+        return isinstance(scan.vel_valid, torch.Tensor) or bool(
+            scan.vel_valid)
+    return cfg.imu.use_imu and scan.imu_time is not None
+
+
+def _pretreat(points, valid, sensor):
+    """pretreat, as the (points xyz, intensity, ring, rel_time, valid)
+    that the deskew and the projection read."""
+    pre = pretreatment.pretreat(points, valid, sensor)
+    return (pre.points[..., :3], pre.points[..., 3], pre.ring, pre.rel_time,
+            pre.valid)
+
+
+def _deskew(pre, scan: ScanInput, cfg: SlamConfig) -> torch.Tensor:
+    """The deskewed points of a pretreated scan (see _deskewed)."""
+    pts, _intensity, _ring, rel_time, valid = pre
     if cfg.imu.deskew_mode == "velocity":
         if isinstance(scan.vel_valid, torch.Tensor):  # per lane, no sync
-            pts = velocity_deskew.velocity_deskew(
-                pts, pre.rel_time, scan.ang_rate.to(pts), scan.vel.to(pts),
-                pre.valid & scan.vel_valid[..., None])
-        elif scan.vel_valid:
-            pts = velocity_deskew.velocity_deskew(
-                pts, pre.rel_time, scan.ang_rate.to(pts), scan.vel.to(pts),
-                pre.valid)
-    elif cfg.imu.use_imu and scan.imu_time is not None:
-        info = deskew.integrate_gyro(scan.imu_time, scan.imu_gyro,
-                                     scan.imu_valid, scan.scan_start)
-        vel = None if scan.deskew_vel is None else scan.deskew_vel.to(pts)
-        pts = deskew.deskew_points(pts, pre.rel_time, info, pre.valid,
-                                   vel_body=vel)
-    _img, ext = projection.project_and_extract(
-        pts, pre.points[..., 3], pre.ring, pre.rel_time, pre.valid,
-        cfg.sensor)
+            valid = valid & scan.vel_valid[..., None]
+        return velocity_deskew.velocity_deskew(
+            pts, rel_time, scan.ang_rate.to(pts), scan.vel.to(pts), valid)
+    info = deskew.integrate_gyro(scan.imu_time, scan.imu_gyro,
+                                 scan.imu_valid, scan.scan_start)
+    vel = None if scan.deskew_vel is None else scan.deskew_vel.to(pts)
+    return deskew.deskew_points(pts, rel_time, info, valid, vel_body=vel)
+
+
+def _features(pts, intensity, ring, rel_time, valid, cfg: SlamConfig):
+    """Projection, extraction and features of pretreated (and maybe
+    deskewed) points: (FeatureClouds, ExtractedCloud)."""
+    _img, ext = projection.project_and_extract(pts, intensity, ring,
+                                               rel_time, valid, cfg.sensor)
     fc = feat_ops.extract_features(ext, cfg.feature,
                                    greedy=cfg.feature.greedy_selection)
-    return (fc, ext) if return_ext else fc
+    return fc, ext
 
 
 def _insert_keyframe(state: OdomState, fc: feat_ops.FeatureClouds,
@@ -249,7 +292,9 @@ def odom_step(state: OdomState, scan: ScanInput,
     keyframe gate and about twelve times more on a keyframe for the map
     merge; the preprocessing does not wait (utils/profiling.py's
     host_syncs counter by span, on an H100 over the HDL-64 plaza lap and
-    the VLP-16 circuit)."""
+    the VLP-16 circuit). On the card the preprocessing is replayed from
+    CUDA graphs, with the deskew of a scan that carries an IMU window or
+    an ego velocity run eagerly between two of them (see preprocess)."""
     state, out, _fc, _ext = _odom_step_impl(state, scan, cfg)
     return state, out
 

@@ -29,6 +29,9 @@ stage of the active timer.
   CUDA's sync debug mode is "warn" while a root runs, and every warning is
   counted, not shown (0 on the CPU).
 - `gn_iterations`: `scan_match.scan_to_map`'s iterations.
+- `preprocess_replays`: +1 an `odometry.preprocess` call that CUDA-graph
+  replays gave whole (utils/graphs.py); `preprocess_eager`: +1 a call run
+  eagerly (on the CPU, or at a signature's first call, which captures).
 
 While tracing is off, a span costs a context lookup, a profiler-state
 check and the two clock reads.
@@ -50,7 +53,8 @@ from dataclasses import dataclass
 import torch
 from torch._C._profiler import _RecordFunctionFast
 
-COUNTERS = ("scans", "host_syncs", "gn_iterations")
+COUNTERS = ("scans", "host_syncs", "gn_iterations", "preprocess_replays",
+            "preprocess_eager")
 _SYNC_WARNING = "called a synchronizing CUDA operation"
 
 _active: contextvars.ContextVar = contextvars.ContextVar(
