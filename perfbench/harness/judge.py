@@ -3,8 +3,10 @@ session of the window against the plain references of perfbench/reference/
 and against the true poses of the traffic.
 
 Numbers (each cell compares those in perfbench/limits/<cell>.json; the
-rest are printed as readings). A gap between two poses is the largest
-displacement of a point 20 m from the sensor: |dt| + 20 m x angle(dR).
+rest are printed as readings; harness/spec.py `JUDGE_NUMBERS` lists them,
+and a limits key outside them names the number of a check module,
+perfbench/checks/). A gap between two poses is the largest displacement
+of a point 20 m from the sensor: |dt| + 20 m x angle(dR).
 
 - `odom_gap_rms_m`, `odom_gap_max_m`: over the sampled answers of the
   session (the first scan, the last and some drawn from the seed; in a

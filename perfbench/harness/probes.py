@@ -25,6 +25,9 @@
 - `StageTimer.stage` of a session's timer: in a traced session, each
   stage also opens a profiler span of its name, so that an idle gap of
   the device can be labelled by what the host was doing.
+- The functions a cell's checks name (perfbench/checks/): each call's
+  arguments and result handed to the check's `keep`, which chooses what
+  to keep. Installed only in a cell whose limits name the check.
 
 The answers and problems are kept only in a session started with
 `capture` (harness/window.py: the sessions that may be the window's
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 
 import torch
 
@@ -53,6 +57,7 @@ class Probes:
         self.graph_calls: list = []
         self.imu_steps: dict[int, dict] = {}
         self.deskews: dict[int, dict] = {}
+        self.checks: dict[str, list] = {}  # check -> what its keep kept
         self.traced = False
         self.capture = True
         self._in_frontend = False
@@ -68,7 +73,9 @@ class Probes:
         setattr(module, name, make(orig))
         self._undo.append((module, name, orig))
 
-    def install(self):
+    def install(self, checks=None):
+        """Wrap the program's functions; `checks` ({name: module}, the
+        cell's checks) adds the functions each of them captures."""
         from lis_slam_torch.ops import deskew, gn_cuda, gn_solve, knn_cuda
         from lis_slam_torch.ops import scan_match
         from lis_slam_torch.pipeline import lio, odometry
@@ -86,6 +93,10 @@ class Probes:
         self._patch(gn_cuda, "gn_iteration_lanes", self._wrap_gn(lanes=True))
         self._patch(lio, "_lio_prestep", self._wrap_prestep)
         self._patch(deskew, "deskew_points", self._wrap_deskew)
+        for name, check in (checks or {}).items():
+            for module, attr in check.CAPTURES:
+                self._patch(importlib.import_module(module), attr,
+                            self._wrap_keep(name, check.keep))
         return self
 
     def uninstall(self):
@@ -197,6 +208,20 @@ class Probes:
             return out
         return deskew_points
 
+    # -- the cell's checks --
+    def _wrap_keep(self, name: str, keep):
+        def make(orig):
+            @functools.wraps(orig)
+            def kept(*args, **kw):
+                out = orig(*args, **kw)
+                if self.capture:
+                    item = keep(self.scan_index, self.sample, args, kw, out)
+                    if item is not None:
+                        self.checks.setdefault(name, []).append(item)
+                return out
+            return kept
+        return make
+
     # -- kernels, traced sessions only --
     def _wrap_knn(self, lanes: bool):
         def make(orig):
@@ -234,6 +259,7 @@ class Probes:
         self.captures = {}
         self.deskews = {}
         self.imu_steps = {}
+        self.checks = {}
         self._lane_step = 0
         self.graph_calls = []
         self.traced = traced

@@ -66,6 +66,7 @@ class Session:
     graph_calls: list = field(default_factory=list)
     imu_steps: dict = field(default_factory=dict)  # scan -> LIO prestep
     deskews: dict = field(default_factory=dict)  # scan -> the deskew's I/O
+    checks: dict = field(default_factory=dict)  # check -> what it kept
     stage_s: dict = field(default_factory=dict)  # stage -> (count, total s)
     imu_s: float = 0.0
     lane_poses: np.ndarray | None = None  # (B, N, 6), a batched replay

@@ -7,7 +7,8 @@ in sessions that may be the window's last: those that start less than
 twice the longest session yet (the warm-up's included) before the
 window's end, and the window's first (in a traced run, the profiled one).
 The check judges the last such session: the window's last, unless that
-one ran over twice as long as any before it."""
+one ran over twice as long as any before it. What a cell's checks kept of
+a captured session is its `checks`."""
 
 from __future__ import annotations
 
@@ -138,6 +139,8 @@ def run_window(sessions, probes, seconds: float, trace: bool,
             c1 = os.times()
             s.cpu_s = (c1.user - c0.user, c1.system - c0.system)
             longest = max(longest, s.wall_s)
+        if capture:
+            s.checks = probes.checks
         first = False
         rec.add(s, under_profiler)
         if time.perf_counter() - t0 >= seconds:

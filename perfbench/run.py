@@ -10,7 +10,8 @@ lis_slam_torch/_build/) and runs one warm-up session of the traffic.
 Then sessions run back to back, closed loop, until `--seconds` have
 passed and the session in flight has ended. After the window, the
 program's answers in the last session that kept them are compared with
-the plain references and the true poses (harness/judge.py), each number
+the plain references and the true poses (harness/judge.py), and with the
+cell's checks where its limits name any (perfbench/checks/), each number
 beside its limit.
 
 The last line of standard output is one JSON object: `correct`,
@@ -85,16 +86,17 @@ def loaded_forbidden() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
-def prepare(cell, seed: int, device):
+def prepare(cell, seed: int, device, checks: dict | None = None):
     """Set-up short of the warm-up: the program's configuration, the
-    traffic, the probes and the session driver."""
+    traffic, the probes (with what the cell's `checks` capture) and the
+    session driver."""
     from perfbench.harness import probes as P
     from perfbench.harness import program, traffic
 
     cfg = program.build_config(cell.config)
     tr = traffic.generate(cell.traffic, seed, device,
                           extrinsic_rot=cfg.imu.extrinsic_rot)
-    probes = P.Probes().install()
+    probes = P.Probes().install(checks)
     sessions = program.sessions_for(cell.traffic["session"])(
         cfg, cell.config, tr, device, probes)
     sample = traffic.sample_indices(len(tr.scans),
@@ -102,10 +104,11 @@ def prepare(cell, seed: int, device):
     return cfg, tr, probes, sessions, sample
 
 
-def measure(cell, args, device, torch):
+def measure(cell, args, device, torch, checks: dict):
     """Set-up, warm-up and the window; returns what the result reads."""
     cuda = device.type == "cuda"
-    cfg, tr, probes, sessions, sample = prepare(cell, args.seed, device)
+    cfg, tr, probes, sessions, sample = prepare(cell, args.seed, device,
+                                                checks)
     probes.sample = set(sample)
     t_warm = time.perf_counter()
     # warm-up: every shape of the traffic, every stage, the probes' copies
@@ -154,24 +157,30 @@ def main(argv=None, cell=None, device=None) -> int:
     drive a run on the CPU without the look for a card."""
     args = parse(argv)
     _caches()
-    from perfbench.harness.spec import load_cell
+    from perfbench.harness import spec
 
     steady()
     if cell is None:
-        cell = load_cell(args.workload)
+        cell = spec.load_cell(args.workload)
+    try:
+        checks = spec.checks_for(cell.limits)
+    except ValueError as e:
+        _fail(f"{cell.name}: {e}")
     import torch
 
     if device is None:
         torch.set_num_threads(1)
         device_check(torch, cell.chips)
         device = torch.device("cuda", 0)
-    cfg, tr, probes, rec, setup_s, peak = measure(cell, args, device, torch)
+    cfg, tr, probes, rec, setup_s, peak = measure(cell, args, device, torch,
+                                                  checks)
     probes.uninstall()
 
     from perfbench.harness import judge
 
     prob = judge.problem_of(rec.judged or rec.last, cfg, tr,
                             cell.traffic["session"] == "lio_odometry")
+    captured = (rec.judged or rec.last).checks  # what the checks kept
     metrics = (per_layer(cell, rec) if args.trace
                else end_to_end(cell, rec, setup_s))
     device_info = {"platform": "gpu" if device.type == "cuda" else "cpu",
@@ -193,11 +202,15 @@ def main(argv=None, cell=None, device=None) -> int:
         device_info["window_s"] = rec.trace.window_s
         breakdown = {"device_ops": rec.trace.device_ops,
                      "idle_gaps": rec.trace.idle_gaps}
-    del rec, tr
+    del rec
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
     numbers = judge.readings(prob)
+    for name, check in checks.items():
+        numbers.update(check.readings(captured.get(name, []), cell.config,
+                                      tr, device))
+    del tr, captured
     correct, rows = judge.verdict(numbers, cell.limits)
     context = {k: v for k, v in numbers.items() if k not in cell.limits}
     if context:  # printed, not compared

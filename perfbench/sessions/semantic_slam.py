@@ -2,7 +2,10 @@
 session. Each scan is padded (`pipeline/driver.pad_scan`), copied to the
 card from pinned memory (`run_kitti.upload_scan`) and fed to
 `process_scan` with its labels and, where the traffic has them, its IMU
-rows; its pose is read back. `finish()` ends the session."""
+rows; its pose is read back. `finish()` ends the session. Where the
+configuration names RangeNet weights (`"weights": {"rangenet": <name>,
+"seed": <n>}`), set-up builds them once (perfbench/weights/<name>.py) and
+every session's SemanticSlam labels its keyframes with them."""
 
 from __future__ import annotations
 
@@ -10,7 +13,7 @@ import time
 
 import numpy as np
 
-from perfbench.harness import program
+from perfbench.harness import program, spec
 from perfbench.harness.drift import drift_hook
 
 
@@ -20,6 +23,11 @@ class Sessions:
         self.probes = probes
         self.hook = drift_hook(float(traffic.params.get("drift_per_scan",
                                                         0.0)))
+        self.system_kw = {}
+        weights = config.get("weights")
+        if weights is not None:
+            self.system_kw["rangenet_params"] = spec.weights_builder(
+                weights["rangenet"])(cfg, int(weights["seed"]), device)
 
     def run(self, traced: bool = False,
             capture: bool = True) -> program.Session:
@@ -30,7 +38,8 @@ class Sessions:
         cfg, dev, probes = self.cfg, self.device, self.probes
         s = program.Session(captured=capture)
         t0 = time.perf_counter()
-        system = slam.SemanticSlam(cfg, pose_hook=self.hook, device=dev)
+        system = slam.SemanticSlam(cfg, pose_hook=self.hook, device=dev,
+                                   **self.system_kw)
         probes.start_session(system, traced, capture)
         for i, scan in enumerate(self.traffic.scans):
             probes.scan_index = i

@@ -133,3 +133,18 @@ def test_the_reference_and_yardstick_import_nothing_of_the_program():
     # the name check compares whole top-level names: the port's name
     # begins with the JAX package's and is not it
     assert "lis_slam_torch".split(".")[0] not in FORBIDDEN
+
+
+def test_every_limits_key_is_formed_by_the_judge_or_a_check():
+    files = sorted((ROOT / "perfbench" / "limits").glob("*.json"))
+    assert {f.stem for f in files} >= set(CELLS)
+    for f in files:
+        # raises on a key that nothing forms
+        spec.checks_for(json.loads(f.read_text()))
+    for name, check in spec.check_modules().items():
+        assert check.NUMBERS, name
+        assert not set(check.NUMBERS) & set(spec.JUDGE_NUMBERS), name
+        for module, attr in check.CAPTURES:
+            assert hasattr(importlib.import_module(module), attr), name
+        for fn in ("keep", "readings", "control"):
+            assert callable(getattr(check, fn)), (name, fn)
