@@ -452,6 +452,11 @@ class SemanticConfig:
     enc_blocks: tuple = (1, 2, 8, 8, 4)
     enc_widths: tuple = (64, 128, 256, 512, 1024)
     dec_widths: tuple = (512, 256, 128, 64, 32)
+    # the port's own key, not in lis_slam_tpu/config.py: keyframes labelled
+    # on the net's own model_input_h x model_input_w projection of the
+    # pretreated scan (netTensorRT's doProjection input) instead of the
+    # front end's range image (semantic/inference.py)
+    own_projection: bool = False
 
 
 @dataclass(frozen=True)

@@ -248,15 +248,27 @@ class RangeNet(nn.Module):
         return self.Conv_0(y).permute(0, 2, 3, 1)
 
 
+_constants: dict = {}  # (values, device) -> float32 tensor on the device
+
+
+def _constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """`values` as a float32 tensor on `device`, made once and kept, so
+    that a CUDA graph captured over a chain that reads it copies nothing
+    from the host (the graph's first, eager call makes it)."""
+    t = _constants.get((values, device))
+    if t is None:
+        t = _constants[(values, device)] = torch.tensor(
+            values, dtype=torch.float32, device=device)
+    return t
+
+
 def normalize_input(img: torch.Tensor, cfg: SemanticConfig) -> torch.Tensor:
     """Per-channel (x - mean) / std (netTensorRT.cpp:339-354), rounded as
     the JAX package's jitted CPU programs round it: XLA turns the division
     by the constant stds into a product with their float32 reciprocals
     (a true division differs in the last bit for ~12% of the values)."""
-    means = torch.as_tensor(cfg.img_means, dtype=torch.float32,
-                            device=img.device)
-    inv_stds = 1.0 / torch.as_tensor(cfg.img_stds, dtype=torch.float32,
-                                     device=img.device)
+    means = _constant(tuple(cfg.img_means), img.device)
+    inv_stds = 1.0 / _constant(tuple(cfg.img_stds), img.device)
     return (img - means) * inv_stds
 
 

@@ -103,7 +103,7 @@ def range_image(ext: ExtractedCloud,
     grid[dest] = payload
     grid = grid[: n * h]
     hit = torch.zeros(n * h + 1, dtype=torch.bool, device=payload.device)
-    hit[dest] = True
+    hit.index_fill_(0, dest, True)  # no host value copied to the device
     hit = hit[: n * h]
     rng = norm_fma(grid[:, :3])
     return RangeImage(

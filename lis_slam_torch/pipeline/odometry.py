@@ -150,9 +150,7 @@ def preprocess(scan: ScanInput, cfg: SlamConfig, return_ext: bool = False):
     counts `preprocess_replays` where replays gave all of it, else
     `preprocess_eager` (utils/profiling.py)."""
     if _deskewed(scan, cfg):
-        pre, replayed = graphs.replay(
-            "pretreat", lambda *a: _pretreat(*a, cfg.sensor),
-            (scan.points, scan.valid), cfg.sensor)
+        pre, replayed = _pretreated(scan, cfg)
         (fc, ext), replayed_b = graphs.replay(
             "features", lambda *a: _features(*a, cfg),
             (_deskew(pre, scan, cfg), *pre[1:]), (cfg.sensor, cfg.feature))
@@ -173,6 +171,25 @@ def _deskewed(scan: ScanInput, cfg: SlamConfig) -> bool:
         return isinstance(scan.vel_valid, torch.Tensor) or bool(
             scan.vel_valid)
     return cfg.imu.use_imu and scan.imu_time is not None
+
+
+def projected_points(scan: ScanInput, cfg: SlamConfig) -> tuple:
+    """What `preprocess` projects of a scan, for a second projection of
+    it (semantic/inference.py `infer_own_labels`): the padded raw scan
+    (points, valid) where it is not deskewed, which the reader pretreats
+    itself; else the pretreated points deskewed as preprocess deskews
+    them (xyz, intensity, ring, rel_time, valid), the pretreatment's graph
+    replayed and the deskew eager."""
+    if not _deskewed(scan, cfg):
+        return scan.points, scan.valid
+    pre, _replayed = _pretreated(scan, cfg)
+    return (_deskew(pre, scan, cfg), *pre[1:])
+
+
+def _pretreated(scan: ScanInput, cfg: SlamConfig):
+    """(_pretreat of the scan, whether a graph replay gave it)."""
+    return graphs.replay("pretreat", lambda *a: _pretreat(*a, cfg.sensor),
+                         (scan.points, scan.valid), cfg.sensor)
 
 
 def _pretreat(points, valid, sensor):

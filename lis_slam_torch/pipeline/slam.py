@@ -20,7 +20,8 @@ reference's. A "fetch" is a `.cpu()` of the window's tensors.
 
 Labels come from `gt_labels` ("gt"), from RangeNet inference on
 keyframes ("infer": cfg.semantic.enabled and no labels; the in-repo
-checkpoint unless `rangenet_params` are given), or not at all ("none").
+checkpoint unless `rangenet_params` are given, a weight tree or a loaded
+net), or not at all ("none").
 
 With cfg.imu.use_imu, `slam_step` runs the LIO chain of the JAX package's
 fused step (IMUPreintegration, subMapOptmizationNode.cpp:2007-2219) around
@@ -279,7 +280,12 @@ def slam_step(fstate: FusedState, scan: odometry.ScanInput,
     The JAX package infers on a second projection of the pretreated,
     undeskewed scan; the front end's projection holds the same winners
     unless the front end deskews the scan, where the net here reads the
-    deskewed cloud that the features come from."""
+    deskewed cloud that the features come from. With
+    infer_cfg.semantic.own_projection the net reads its own projection
+    of that cloud (`sem_inf.infer_own_labels`, on the card one CUDA-graph
+    replay), and the front end's winners take their points' labels.
+    While a profiler records, each labelled keyframe counts
+    `rangenet_forwards`."""
     if lab_mode not in ("gt", "infer", "none"):
         raise ValueError(f"lab_mode {lab_mode!r}")
     if lab_mode == "infer" and (model is None or infer_cfg is None):
@@ -316,11 +322,18 @@ def slam_step(fstate: FusedState, scan: odometry.ScanInput,
         dev = out.pose.device
         qk = cfg.submap.keyframe_class_capacity
         if lab_mode == "infer":
-            # RangeNet reads the front end's projection; only its winners
-            # get labels, which is all the gathers below read
             with profiling.span("rangenet"):
-                lab_raw = sem_inf.infer_winner_labels(
-                    model, ext, scan.points.shape[0], infer_cfg)
+                profiling.count("rangenet_forwards")
+                if infer_cfg.semantic.own_projection:
+                    lab_raw = sem_inf.infer_own_labels(
+                        model, odometry.projected_points(scan, cfg),
+                        infer_cfg).point_labels
+                else:
+                    # RangeNet reads the front end's projection; only its
+                    # winners get labels, which is all the gathers below
+                    # read
+                    lab_raw = sem_inf.infer_winner_labels(
+                        model, ext, scan.points.shape[0], infer_cfg)
         if lab_mode != "none":
             with profiling.span("semantic_refine"):
                 # the front end's projection carries each slot's raw index,
@@ -490,11 +503,15 @@ class SemanticSlam:
         self._imu_inert_scans = 0  # consecutive supplied-but-empty windows
         # semantic inference (semanticFusionNode): with semantics enabled,
         # RangeNet labels each keyframe; its weights are `rangenet_params`
-        # (a flax-layout tree, architecture cfg.semantic) or the in-repo
+        # (a flax-layout tree, architecture cfg.semantic, or a RangeNet
+        # already loaded on `device`, used as given, so that systems of
+        # one process can share one net and its graph) or the in-repo
         # checkpoint with its own architecture
         self.model, self._infer_cfg = None, None
         if cfg.semantic.enabled:
-            if rangenet_params is not None:
+            if isinstance(rangenet_params, torch.nn.Module):
+                self.model, self._infer_cfg = rangenet_params, cfg
+            elif rangenet_params is not None:
                 self.model = sem_inf.load_model(rangenet_params,
                                                 cfg.semantic, self.device)
                 self._infer_cfg = cfg

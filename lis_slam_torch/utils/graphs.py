@@ -18,11 +18,15 @@ own, in its order.
 
 CPU tensors always run eagerly. The graphs are kept process-wide, one per
 signature, until `clear()`; one signature is not to be replayed from two
-streams at once.
+streams at once. A chain that reads an object's memory besides its inputs
+(a net's parameters) names it as `owner`: the signature then holds the
+owner's identity, and the graph is dropped when the owner is freed, since
+a graph replays on the addresses it captured.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, NamedTuple
 
 import torch
@@ -46,18 +50,24 @@ def signature(name: str, inputs, key=()) -> tuple:
             key)
 
 
-def replay(name: str, fn: Callable, inputs: tuple, key=()):
+def replay(name: str, fn: Callable, inputs: tuple, key=(), owner=None):
     """`fn(*inputs)` through the graph of its signature (see the module
     docstring). `fn` returns tensors, or tuples and NamedTuples of them.
-    Returns (the results, whether a replay gave them)."""
+    `owner`: the object whose memory `fn` reads besides `inputs`; its
+    graphs live no longer than it. Returns (the results, whether a replay
+    gave them)."""
     if not _on_card(inputs):
         return fn(*inputs), False
+    if owner is not None:
+        key = (key, id(owner))
     sig = signature(name, inputs, key)
     cap = _graphs.get(sig)
     if cap is None:
         out = fn(*inputs)
         launch, static, outputs = _capture(fn, inputs)
         _graphs[sig] = _Captured(launch, static, outputs, *_plan(outputs))
+        if owner is not None:
+            weakref.finalize(owner, _graphs.pop, sig, None)
         return out, False
     for buf, t in zip(cap.inputs, inputs):
         buf.copy_(t)

@@ -32,6 +32,9 @@ stage of the active timer.
 - `preprocess_replays`: +1 an `odometry.preprocess` call that CUDA-graph
   replays gave whole (utils/graphs.py); `preprocess_eager`: +1 a call run
   eagerly (on the CPU, or at a signature's first call, which captures).
+- `rangenet_forwards`: +1 a keyframe that RangeNet labelled;
+  `rangenet_replays`: +1 of those whose labelling a CUDA-graph replay
+  gave (semantic/inference.py `infer_own_labels`).
 
 While tracing is off, a span costs a context lookup, a profiler-state
 check and the two clock reads.
@@ -54,7 +57,7 @@ import torch
 from torch._C._profiler import _RecordFunctionFast
 
 COUNTERS = ("scans", "host_syncs", "gn_iterations", "preprocess_replays",
-            "preprocess_eager")
+            "preprocess_eager", "rangenet_forwards", "rangenet_replays")
 _SYNC_WARNING = "called a synchronizing CUDA operation"
 
 _active: contextvars.ContextVar = contextvars.ContextVar(

@@ -231,7 +231,9 @@ def test_full_size_architecture_on_meta():
 def test_load_checkpoint_matches_jax():
     jcfg, jvars = JW.load_checkpoint()
     tcfg, tvars = W.load_checkpoint()
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    # the port's own key (own_projection) at its default
+    assert dataclasses.asdict(tcfg) == dict(dataclasses.asdict(jcfg),
+                                            own_projection=False)
     fa = W._flatten(jax.tree_util.tree_map(np.asarray, jvars))
     fb = W._flatten(tvars)
     assert set(fa) == set(fb)
@@ -339,8 +341,10 @@ def test_init_params_follows_flax_scheme():
     cfg = slim_semantic_config()
     a = rn.init_params(cfg, torch.Generator().manual_seed(3))
     b = rn.init_params(cfg, torch.Generator().manual_seed(3))
+    fields = dataclasses.asdict(cfg)
+    assert fields.pop("own_projection") is False  # the port's own key
     _, jv = jrn.init_params(jax.random.PRNGKey(0), JSemanticConfig(
-        **dataclasses.asdict(cfg)), input_w=64)
+        **fields), input_w=64)
     fj = W._flatten(jax.tree_util.tree_map(np.asarray, jv))
     fa, fb = W._flatten(a), W._flatten(b)
     assert set(fa) == set(fj)

@@ -273,8 +273,10 @@ def test_unported_paths_raise(tmp_path):
     }
     for name, (ts, js) in pairs.items():
         assert ts.model is not None and js.model is not None, name
-        assert (dataclasses.asdict(ts._infer_cfg)
-                == dataclasses.asdict(js._infer_cfg)), name
+        # the port's own key (semantic.own_projection) at its default
+        want_cfg = dataclasses.asdict(js._infer_cfg)
+        want_cfg["semantic"]["own_projection"] = False
+        assert dataclasses.asdict(ts._infer_cfg) == want_cfg, name
         want = W.to_torch_state(js.model_vars, ts._infer_cfg.semantic)
         for k, v in ts.model.state_dict().items():
             torch.testing.assert_close(v, want[k].to(v.dtype), rtol=0,
