@@ -3,33 +3,33 @@
 Port of lis_slam_tpu/ops/pallas_gn.py (`gn_partials`, the Pallas TPU
 kernel `_gn_kernel`, `pack_scalars`, `gn_iteration_hg`). The kernel is CUDA
 C++ in csrc/gn.cu — see its header for what bounds it on the H100 and how
-its design answers: one launch per GN iteration for both clouds (and
-every lane), the scalar rows by value from the host or from device
-memory, each lane's block sums reduced by its last block. The wrappers
-take the plain PyTorch version for tensors on the CPU and launch the
-kernel for CUDA tensors; they never fall back.
+its design answers: one launch per GN iteration for both clouds and
+every lane, the scalar rows read from device memory, each lane's block
+sums reduced by its last block.
 
-`gn_iteration_vec` is the main path's call (scan_match, once per GN
-iteration): it returns the packed (43,) normal equations [H (6x6
-row-major), g (6), n_valid], so the solver brings them to the host in one
-copy. `gn_iteration_hg` unpacks them as the JAX function returns them;
-`gn_partials` runs one cloud. `gn_iteration_lanes` is the scheduled
-solver's call: B lanes in one launch, each lane's scalar rows read from
-device memory (where kernel K3 wrote them), (B, 43) out; each lane's
-result is bit-equal to a one-lane launch on its inputs. It computes each
-row and the sums in float64 and rounds H, g once: on the circuit,
-float32 rounding of the rows whose five neighbours are nearly collinear
-moves the weakest eigenvalue of H by 5-9%, and where that eigenvalue
-sits at the degeneracy threshold the solver's projection, and with it
-the lane's drift, followed the rounding (PERF.md, section 6). The one-lane
-calls keep float32, as the JAX kernel computes, and so does the lanes
-call on the CPU, where the tests hold the port to the JAX package;
-`gn_iteration_lanes_plain` is its plain version in either precision.
-Every K2 launch counts in `gn_iteration_vec.launches`.
+`gn_iteration_lanes` is the kernel's one entry, the call of both solvers
+on the card (scan_match.scan_to_map at B = 1, the scheduled solver at any
+B): B lanes in one launch, each lane's scalar rows read from device
+memory (where kernel K3 wrote them), the packed (B, 43) normal equations
+[H (6x6 row-major), g (6), n_valid] out; each lane's result is bit-equal
+to a one-lane launch on its inputs. It computes each row and the sums in
+float64 and rounds H, g once: on the circuit, float32 rounding of the
+rows whose five neighbours are nearly collinear moves the weakest
+eigenvalue of H by 5-9%, and where that eigenvalue sits at the
+degeneracy threshold the solver's projection, and with it the lane's
+drift, followed the rounding (PERF.md, section 6). On CPU tensors it
+takes its plain version in float32, as the JAX kernel computes, where the
+tests hold the port to the JAX package; `gn_iteration_lanes_plain` is
+the plain version in either precision. Every K2 launch counts in
+`gn_iteration_vec.launches`.
 
-The plain version is the op-by-op ("xla" backend) math of
-scan_match._iteration_update for ONE cloud — transform, stable re-rank,
-gather, corner/surf correspondences — reduced to (H, g, n_valid).
+`gn_iteration_vec` (the host GN loop's call, scan_match.scan_to_map on
+CPU clouds), `gn_iteration_hg` and `gn_partials` (one cloud) are the JAX
+functions' plain versions on the CPU: the op-by-op ("xla" backend) math
+of scan_match._iteration_update for one cloud — transform, stable
+re-rank, gather, corner/surf correspondences — reduced to (H, g,
+n_valid). They launch nothing: csrc/gn.cu's one-lane float32 mode, the
+rows by value from the host, has no caller.
 """
 
 from __future__ import annotations
@@ -155,48 +155,34 @@ def _check_inputs(pts, mask, cand, cand_ok, weight, scalars, mode, k):
         raise ValueError(f"gn_partials: unknown mode {mode!r}")
 
 
-def _launch(corner, surf, rows: torch.Tensor, k: int, lanes: int = 0):
-    """One K2 launch over the clouds `corner` and `surf`, each None or
-    (pts, mask, cand, cand_ok, weight or None) on one CUDA device. One
-    lane (lanes=0): clouds (Q, ...), `rows` the (2, 64) float32 scalar
-    rows on the host, passed by value; returns the packed (43,) result.
-    B lanes: clouds (B, Q, ...), `rows` (B, 2, 64) on the device, rows
-    and sums in float64; returns (B, 43)."""
+def _launch(corner, surf, rows: torch.Tensor, k: int):
+    """One K2 launch over B lanes of the clouds `corner` and `surf`, each
+    (pts (B, Q, 3), mask, cand, cand_ok, weight or None) on one CUDA
+    device, `rows` the lanes' (B, 2, 64) float32 scalar rows on that
+    device; rows and sums in float64. Returns the packed (B, 43)."""
     if k not in KERNEL_K:
-        raise ValueError(f"gn_partials: kernel is built for k in {KERNEL_K}, "
-                         f"got {k}")
+        raise ValueError(f"gn_iteration_lanes: kernel is built for k in "
+                         f"{KERNEL_K}, got {k}")
     lib = _lib()
-    dev = (corner if corner is not None else surf)[0].device
-    q_axis = 1 if lanes else 0
+    dev = corner[0].device
+    lanes = rows.shape[0]
     args, n_blocks = [], 0
     for c in (corner, surf):
-        if c is None:
-            args += [None] * 5 + [0]
-            continue
         if not all(t.is_contiguous() for t in c if t is not None):
-            raise ValueError("gn_partials: inputs must be contiguous")
+            raise ValueError("gn_iteration_lanes: inputs must be contiguous")
         args += [None if t is None else t.data_ptr() for t in c]
-        args.append(c[0].shape[q_axis])
-        n_blocks += -(-c[0].shape[q_axis] // lib.lis_gn_block_size())
-    if lanes:
-        if (rows.dtype != torch.float32 or rows.shape != (lanes, 2, 64)
-                or rows.device != dev or not rows.is_contiguous()):
-            raise ValueError("gn_iteration_lanes: rows must be float32 "
-                             "(B, 2, 64), contiguous, on the clouds' device")
-        host, dev_rows = None, rows.data_ptr()
-    else:
-        rows = rows.to(torch.float32).contiguous()
-        host, dev_rows = rows.data_ptr(), None
-    n_lanes = max(lanes, 1)
-    partials = torch.empty((n_lanes * max(n_blocks, 1), 28),
-                           dtype=torch.float64 if lanes else torch.float32,
-                           device=dev)
-    out = torch.empty((n_lanes, 43) if lanes else (43,), dtype=torch.float32,
-                      device=dev)
+        args.append(c[0].shape[1])
+        n_blocks += -(-c[0].shape[1] // lib.lis_gn_block_size())
+    if (rows.dtype != torch.float32 or rows.shape != (lanes, 2, 64)
+            or rows.device != dev or not rows.is_contiguous()):
+        raise ValueError("gn_iteration_lanes: rows must be float32 "
+                         "(B, 2, 64), contiguous, on the clouds' device")
+    partials = torch.empty((lanes * max(n_blocks, 1), 28),
+                           dtype=torch.float64, device=dev)
+    out = torch.empty((lanes, 43), dtype=torch.float32, device=dev)
     err = lib.lis_gn_iteration(
-        *args, k, host, dev_rows, n_lanes, int(bool(lanes)),
-        partials.data_ptr(),
-        _tickets(dev, n_lanes).data_ptr(), out.data_ptr(),
+        *args, k, None, rows.data_ptr(), lanes, 1, partials.data_ptr(),
+        _tickets(dev, lanes).data_ptr(), out.data_ptr(),
         cuda_build.stream_ptr(dev))
     cuda_build.check(err, "gn kernel")
     gn_iteration_vec.launches += 1
@@ -210,40 +196,24 @@ def _unpack(hg: torch.Tensor):
 def gn_partials(pts: torch.Tensor, mask: torch.Tensor, cand: torch.Tensor,
                 cand_ok: torch.Tensor, weight: torch.Tensor,
                 scalars: torch.Tensor, mode: str, k: int):
-    """One fused GN accumulation pass over one cloud. Returns (H (6,6),
-    g (6,), n_valid () float32). CPU tensors take the plain version; CUDA
-    tensors launch kernel K2 (its scalar row is read back to the host)."""
+    """One GN accumulation pass over one cloud, as the JAX function: (H
+    (6,6), g (6,), n_valid () float32). The plain version, on the CPU; on
+    the card K2 runs as gn_iteration_lanes."""
     _check_inputs(pts, mask, cand, cand_ok, weight, scalars, mode, k)
-    if pts.device.type == "cpu":
-        return gn_partials_plain(pts, mask, cand, cand_ok, weight, scalars,
-                                 mode, k)
-    if pts.device.type != "cuda":
-        raise ValueError(f"gn_partials: unsupported device {pts.device}")
-    cloud = (pts, mask, cand, cand_ok, weight)
-    row = scalars.detach().cpu()
-    return _unpack(_launch(cloud if mode == "corner" else None,
-                           cloud if mode == "surf" else None,
-                           torch.stack([row, row]), k))
-
-
-def scalar_rows(pose: torch.Tensor, cfg: MatchingConfig) -> torch.Tensor:
-    """(2, 64) float32 on the host: pack_scalars' corner row, then its surf
-    row (the same but for the gate in slot 42)."""
-    corner = pack_scalars(pose.detach().to("cpu", torch.float32), cfg,
-                          "corner")
-    rows = torch.stack([corner, corner])
-    rows[1, _SC_GATES + 3] = cfg.plane_fit_tolerance
-    return rows
+    if pts.device.type != "cpu":
+        raise ValueError(f"gn_partials: runs on the CPU, got {pts.device}; "
+                         "on the card K2 runs as gn_iteration_lanes")
+    return gn_partials_plain(pts, mask, cand, cand_ok, weight, scalars, mode,
+                             k)
 
 
 def gn_iteration_vec(pose, corner_pts, corner_mask, c_cand, c_ok,
                      surf_pts, surf_mask, s_cand, s_ok,
                      corner_w, surf_w, cfg: MatchingConfig, k: int):
-    """The fused H/g build of one GN iteration (corner + surf clouds), as
-    the packed (43,) float32 [H (6x6 row-major), g (6), n_valid] on the
-    clouds' device. `pose` may lie on the host (the main path keeps it
-    there). CUDA clouds: one K2 launch, no host-to-device copy; CPU
-    clouds: the plain version per cloud, summed."""
+    """The fused H/g build of one GN iteration of the host loop (corner +
+    surf clouds), as the packed (43,) float32 [H (6x6 row-major), g (6),
+    n_valid]: the plain version per cloud, summed, on the CPU. On the card
+    K2 runs as gn_iteration_lanes."""
     dev = corner_pts.device
     _check_cloud(corner_pts, corner_mask, c_cand, c_ok, corner_w, k,
                  "gn_iteration")
@@ -251,20 +221,16 @@ def gn_iteration_vec(pose, corner_pts, corner_mask, c_cand, c_ok,
                  "gn_iteration")
     if surf_pts.device != dev:
         raise ValueError("gn_iteration: clouds must share a device")
-    if dev.type == "cuda":
-        return _launch((corner_pts, corner_mask, c_cand, c_ok, corner_w),
-                       (surf_pts, surf_mask, s_cand, s_ok, surf_w),
-                       scalar_rows(pose, cfg), k)
     if dev.type != "cpu":
-        raise ValueError(f"gn_iteration: unsupported device {dev}")
+        raise ValueError(f"gn_iteration: runs on the CPU, got {dev}; on the "
+                         "card K2 runs as gn_iteration_lanes")
     outs = []
     for mode, pts, mask, cand, ok, w in (
             ("corner", corner_pts, corner_mask, c_cand, c_ok, corner_w),
             ("surf", surf_pts, surf_mask, s_cand, s_ok, surf_w)):
         w = torch.ones(pts.shape[0], device=dev) if w is None else w
         outs.append(gn_partials_plain(
-            pts, mask, cand, ok, w, pack_scalars(pose, cfg, mode).to(dev),
-            mode, k))
+            pts, mask, cand, ok, w, pack_scalars(pose, cfg, mode), mode, k))
     (Hc, gc, nc), (Hs, gs, ns) = outs
     return torch.cat([(Hc + Hs).reshape(-1), gc + gs, (nc + ns).reshape(1)])
 
@@ -290,8 +256,7 @@ def gn_iteration_lanes(rows: torch.Tensor, corner_pts, corner_mask, c_cand,
     dev = rows.device
     if dev.type == "cuda":
         return _launch((corner_pts, corner_mask, c_cand, c_ok, corner_w),
-                       (surf_pts, surf_mask, s_cand, s_ok, surf_w),
-                       rows, k, lanes=lead[0])
+                       (surf_pts, surf_mask, s_cand, s_ok, surf_w), rows, k)
     if dev.type != "cpu":
         raise ValueError(f"gn_iteration_lanes: unsupported device {dev}")
     return gn_iteration_lanes_plain(rows, corner_pts, corner_mask, c_cand,

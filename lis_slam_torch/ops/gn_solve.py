@@ -1,5 +1,6 @@
-"""The Gauss-Newton solve of the scheduled solver: kernel K3 and its plain
-version.
+"""The Gauss-Newton solve of the solvers on the card: kernel K3 and its
+plain version. The scheduled solver launches it over lanes, scan_to_map
+over one lane when its clouds are on CUDA under the "pallas" backend.
 
 Port of the XLA code that follows each GN iteration's H/g build in
 lis_slam_tpu/ops/scan_match.py: `gn_solve_from_hg` (:181-214, the 6x6

@@ -5,10 +5,13 @@ odomEstimationNode.cpp cornerOptimization :633-747, surfOptimization
 
 Two solvers. `scan_to_map` is a host loop: the JAX `lax.while_loop`, the
 drift-triggered cache refresh `lax.cond` and the convergence test become
-host branches; the correspondences and the J^T J reduction run on the
-device of the clouds, and each iteration brings the 6x6 normal equations
-back to the host (one device sync) and solves them there, where the pose
-lives. `scan_to_map_scheduled` is the cond-free form with a static
+host branches. On CUDA clouds under the "pallas" backend the solver state
+stays on the card: each iteration is one K2 launch and one K3 launch
+(ops/gn_solve.py) and one small read-back for the loop's branches. On the
+CPU, and under "xla", the correspondences and the J^T J reduction run on
+the device of the clouds and each iteration brings the 6x6 normal
+equations back to the host (one device sync) and solves them there, where
+the pose lives. `scan_to_map_scheduled` is the cond-free form with a static
 refresh schedule, over a leading lane dim (batched multi-sequence replay):
 the pose and every GNState field stay on the device, convergence is a
 per-lane mask, and each GN iteration is the H/g build (kernel K2, or the
@@ -21,6 +24,8 @@ without leading lane dims.
 
 from __future__ import annotations
 
+import math
+import struct
 from typing import NamedTuple
 
 import torch
@@ -103,7 +108,7 @@ def _rotation_jacobian_mats(rpy: torch.Tensor):
 
 
 class GNState(NamedTuple):
-    """Solver state. scan_to_map keeps the flags and counts as host
+    """Solver state. scan_to_map returns the flags and counts as host
     scalars; scan_to_map_scheduled keeps every field as a tensor on the
     device, with a leading lane dim (bool / int32 / float32 (B,))."""
 
@@ -217,10 +222,11 @@ def _morton_sort_queries(pts, mask, weight):
 def _iteration_update(pose, corner_pts, corner_mask, c_cand, c_ok,
                       surf_pts, surf_mask, s_cand, s_ok,
                       corner_sem_weight, surf_sem_weight, cfg, cache_k):
-    """One GN iteration on cached candidates, by cfg.gn_backend: "pallas"
-    runs the fused accumulation kernel K2, one launch for both clouds
-    (ops/gn_cuda.py); "xla" is the op-by-op path. Both solve through
-    gn_solve_from_hg."""
+    """One GN iteration of the host loop on cached candidates, by
+    cfg.gn_backend: "pallas" builds the normal equations as K2's plain
+    version computes them (ops/gn_cuda.gn_iteration_vec; the host loop
+    runs "pallas" only on the CPU); "xla" is the op-by-op path. Both
+    solve through gn_solve_from_hg."""
     if cfg.gn_backend == "pallas":
         from . import gn_cuda
 
@@ -268,9 +274,12 @@ def scan_to_map(pose0: torch.Tensor,
     cache refreshes when the pose drifts beyond cache_refresh_* from where
     it was built. Returns a GNState whose pose lies on pose0's device.
 
-    Host syncs: one per iteration (the normal equations), at most
-    `max_iterations`. The iterations add to the counter "gn_iterations"
-    (utils/profiling.py)."""
+    CUDA clouds under cfg.gn_backend "pallas" run the loop with the
+    solver state on the card (_scan_to_map_on_device); CPU clouds and the
+    "xla" backend run it on the host. Host syncs: one per iteration (the
+    read-back or the normal equations), at most `max_iterations`; the
+    host loop adds one at entry, one at exit and one a search. The
+    iterations add to the counter "gn_iterations" (utils/profiling.py)."""
     if cache_k is None:
         cache_k = cfg.nn_cache_k
     if cache_refresh_dist is None:
@@ -282,18 +291,17 @@ def scan_to_map(pose0: torch.Tensor,
         corner_pts, corner_mask, corner_sem_weight)
     surf_pts, surf_mask, surf_sem_weight = _morton_sort_queries(
         surf_pts, surf_mask, surf_sem_weight)
+    if _gn_on_device(dev, cfg):
+        return _scan_to_map_on_device(
+            pose0, corner_pts, corner_mask, surf_pts, surf_mask, corner_map,
+            corner_map_mask, surf_map, surf_map_mask, cfg, max_iterations,
+            corner_sem_weight, surf_sem_weight, cache_k, cache_refresh_dist,
+            cache_refresh_rot)
 
     def search(pose):
-        T = se3.pose_to_matrix(pose).to(dev)
-        cw = se3.transform_points(T, corner_pts)
-        sw = se3.transform_points(T, surf_pts)
-        # capped at 4.0 m^2: candidates beyond the cache margin are
-        # discarded below anyway
-        cd, _ci, c_cand = knn_cuda.knn(cw, corner_map, corner_map_mask,
-                                       k=cache_k, max_sq_dist=4.0)
-        sd, _si, s_cand = knn_cuda.knn(sw, surf_map, surf_map_mask,
-                                       k=cache_k, max_sq_dist=4.0)
-        return c_cand, cd < 4.0, s_cand, sd < 4.0, pose
+        return (*_search(se3.pose_to_matrix(pose).to(dev), corner_pts,
+                         surf_pts, corner_map, corner_map_mask, surf_map,
+                         surf_map_mask, cache_k), pose)
 
     pose = pose0.detach().to("cpu", torch.float32)
     st = GNState(pose=pose, proj=torch.eye(6), degenerate=False,
@@ -318,6 +326,118 @@ def scan_to_map(pose0: torch.Tensor,
                      delta_r=d_r, delta_t=d_t)
     profiling.count("gn_iterations", st.it)
     return st._replace(pose=st.pose.to(pose0.device))
+
+
+def _search(T, corner_pts, surf_pts, corner_map, corner_map_mask, surf_map,
+            surf_map_mask, cache_k: int):
+    """The candidate cache of both loops: the cache_k nearest map points
+    (K1) of the queries moved by the 4x4 `T`, capped at 4.0 m^2
+    (candidates beyond the cache margin are discarded later anyway):
+    (c_cand, c_ok, s_cand, s_ok)."""
+    cd, _ci, c_cand = knn_cuda.knn(se3.transform_points(T, corner_pts),
+                                   corner_map, corner_map_mask, k=cache_k,
+                                   max_sq_dist=4.0)
+    sd, _si, s_cand = knn_cuda.knn(se3.transform_points(T, surf_pts),
+                                   surf_map, surf_map_mask, k=cache_k,
+                                   max_sq_dist=4.0)
+    return c_cand, cd < 4.0, s_cand, sd < 4.0
+
+
+def _gn_on_device(dev: torch.device, cfg: MatchingConfig) -> bool:
+    """Whether scan_to_map keeps the solver state on the clouds' device:
+    CUDA clouds under the "pallas" backend, where K2 and K3 run."""
+    return dev.type == "cuda" and cfg.gn_backend == "pallas"
+
+
+# What _scan_to_map_on_device reads back an iteration, as bytes: the pose
+# solved from and the pose solved (12 float32), n_valid and it (int32),
+# delta_r and delta_t (float32), degenerate and converged (bool)
+_READBACK = struct.Struct("<12f2i2f2?")
+
+
+def _read_back(before: GNState, after: GNState, buf: torch.Tensor) -> tuple:
+    """One copy to the host of an iteration's one-lane states: the fields
+    of _READBACK, viewed as bytes and packed on the device (one launch),
+    then copied into `buf` (host bytes, pinned for a CUDA state): the one
+    sync."""
+    fields = (before.pose, after.pose, after.n_valid, after.it,
+              after.delta_r, after.delta_t, after.degenerate, after.converged)
+    buf.copy_(torch.cat([t.reshape(-1).view(torch.uint8) for t in fields]))
+    return _READBACK.unpack(buf.numpy())
+
+
+def _scan_to_map_on_device(pose0, corner_pts, corner_mask, surf_pts,
+                           surf_mask, corner_map, corner_map_mask, surf_map,
+                           surf_map_mask, cfg: MatchingConfig,
+                           max_iterations: int, corner_sem_weight,
+                           surf_sem_weight, cache_k: int,
+                           cache_refresh_dist: float,
+                           cache_refresh_rot: float) -> GNState:
+    """scan_to_map's loop with the solver state on the clouds' device, on
+    morton-sorted queries: scan_to_map_scheduled's launches (K2 over one
+    lane, ops/gn_cuda.gn_iteration_lanes, with the scalar rows K3 wrote;
+    K3, ops/gn_solve.solve) under the host loop's rules: the early exit
+    once converged or at `max_iterations`, and a fresh search when the
+    pose has drifted beyond cache_refresh_* from where the cache was
+    built. The search transforms the queries by the rows' rotation and
+    translation, the transform K2 applies. Each iteration reads back the
+    poses solved from and to and the flags (_read_back): the loop's one
+    sync. Each K3 solve adds to the counter "gn_device_solves".
+
+    The pose returned lies on pose0's device, the projection on the
+    clouds'; the flags, counts and deltas are host scalars, as the host
+    loop's."""
+    from . import gn_cuda, gn_solve
+
+    dev = corner_pts.device
+    c_pts, c_mask, s_pts, s_mask, c_w, s_w = (
+        None if t is None else t[None] for t in (
+            corner_pts, corner_mask, surf_pts, surf_mask, corner_sem_weight,
+            surf_sem_weight))
+
+    def search(rows):
+        # the rows' rotation and translation as a 4x4 on the device; its
+        # last row from an identity (se3.make_transform writes a host
+        # scalar there, a copy the host waits on)
+        T = torch.cat([torch.cat([rows[0, 0, :9].reshape(3, 3),
+                                  rows[0, 0, 9:12, None]], dim=1),
+                       torch.eye(4, device=dev)[3:]])
+        return tuple(t[None] for t in _search(
+            T, corner_pts, surf_pts, corner_map, corner_map_mask, surf_map,
+            surf_map_mask, cache_k))
+
+    buf = torch.empty(_READBACK.size, dtype=torch.uint8,
+                      pin_memory=dev.type == "cuda")
+    st = gn_solve.init_state(pose0.detach().to(dev)[None])
+    rows = gn_solve.scalar_rows(st, cfg)
+    cache = search(rows)
+    # the host's copies (float tuples) of the pose the cache was built at
+    # and of the current pose: known from the first read-back on (at
+    # iteration 0 the two are pose0, which has not drifted)
+    cache_pose = pose = None
+    it, degen, conv, n_valid, d_r, d_t = 0, False, False, 0, 0.0, 0.0
+    while it < max_iterations and not conv:
+        if pose is not None and (
+                math.dist(pose[3:], cache_pose[3:]) > cache_refresh_dist
+                or math.dist(pose[:3], cache_pose[:3]) > cache_refresh_rot):
+            cache = search(rows)
+            cache_pose = pose
+        c_cand, c_ok, s_cand, s_ok = cache
+        hg = gn_cuda.gn_iteration_lanes(rows, c_pts, c_mask, c_cand, c_ok,
+                                        s_pts, s_mask, s_cand, s_ok, c_w,
+                                        s_w, cache_k)
+        new, rows = gn_solve.solve(hg, st, cfg)
+        profiling.count("gn_device_solves")
+        got = _read_back(st, new, buf)
+        st = new
+        if cache_pose is None:
+            cache_pose = got[:6]
+        pose = got[6:12]
+        n_valid, it, d_r, d_t, degen, conv = got[12:]
+    profiling.count("gn_iterations", it)
+    return GNState(pose=st.pose[0].to(pose0.device), proj=st.proj[0],
+                   degenerate=degen, converged=conv, n_valid=n_valid, it=it,
+                   delta_r=d_r, delta_t=d_t)
 
 
 

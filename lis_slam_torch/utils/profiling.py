@@ -28,7 +28,9 @@ stage of the active timer.
 - `host_syncs`: every blocking wait of the host on the card inside a root:
   CUDA's sync debug mode is "warn" while a root runs, and every warning is
   counted, not shown (0 on the CPU).
-- `gn_iterations`: `scan_match.scan_to_map`'s iterations.
+- `gn_iterations`: `scan_match.scan_to_map`'s iterations;
+  `gn_device_solves`: +1 an iteration whose solve kernel K3 ran on the card
+  (`scan_match._scan_to_map_on_device`).
 - `preprocess_replays`: +1 an `odometry.preprocess` call that CUDA-graph
   replays gave whole (utils/graphs.py); `preprocess_eager`: +1 a call run
   eagerly (on the CPU, or at a signature's first call, which captures).
@@ -56,8 +58,9 @@ from dataclasses import dataclass
 import torch
 from torch._C._profiler import _RecordFunctionFast
 
-COUNTERS = ("scans", "host_syncs", "gn_iterations", "preprocess_replays",
-            "preprocess_eager", "rangenet_forwards", "rangenet_replays")
+COUNTERS = ("scans", "host_syncs", "gn_iterations", "gn_device_solves",
+            "preprocess_replays", "preprocess_eager", "rangenet_forwards",
+            "rangenet_replays")
 _SYNC_WARNING = "called a synchronizing CUDA operation"
 
 _active: contextvars.ContextVar = contextvars.ContextVar(

@@ -93,14 +93,22 @@ def test_gn_iteration_plain_matches_pallas_interpret(weighted):
 
 
 def test_scalar_rows_match_pack_scalars():
-    """The two host rows of a K2 launch are pack_scalars' corner and surf
-    rows, bit for bit."""
+    """The two rows a K2 launch reads (gn_solve.scalar_rows, its plain
+    version on the CPU; K3 writes the same on the card) are pack_scalars'
+    corner and surf rows: the translation and the gates bit for bit, the
+    rotation and its Jacobians to one float32 rounding (batched against
+    one-pose tensor ops)."""
+    from lis_slam_torch.ops import gn_solve
+
     pose = _t(np.array([0.02, -0.01, 0.05, 0.3, -0.2, 0.04], np.float32))
     cfg = SlamConfig().matching
-    rows = gn_cuda.scalar_rows(pose, cfg)
+    rows = gn_solve.scalar_rows(gn_solve.init_state(pose[None]), cfg)[0]
     assert rows.shape == (2, 64) and rows.device.type == "cpu"
-    assert torch.equal(rows[0], gn_cuda.pack_scalars(pose, cfg, "corner"))
-    assert torch.equal(rows[1], gn_cuda.pack_scalars(pose, cfg, "surf"))
+    for row, mode in ((rows[0], "corner"), (rows[1], "surf")):
+        want = gn_cuda.pack_scalars(pose, cfg, mode)
+        assert torch.equal(row[9:12], want[9:12])
+        assert torch.equal(row[39:], want[39:])
+        torch.testing.assert_close(row, want, rtol=0, atol=6e-8)
 
 
 def test_gn_wrapper_checks_inputs():

@@ -6,21 +6,26 @@ file imports no JAX, so it runs where only the port is installed:
 
 (`--noconftest`: tests/conftest.py sets up JAX for the rest of the suite.)
 
-Kernels: K1 exact kNN (ops/knn_cuda.py, csrc/knn.cu), K2 fused GN
-accumulation (ops/gn_cuda.py, csrc/gn.cu), both also over lanes (the
-scheduled solver's batched replay: each lane bit-equal to a one-lane
-launch), and K3 the GN solve and masked update of the scheduled solver
-(ops/gn_solve.py, csrc/gn_solve.cu). chip_smoke.py runs the same
-comparisons at the front end's, the back end's and the batched replay's
-full shapes.
+Kernels: K1 exact kNN (ops/knn_cuda.py, csrc/knn.cu), also over lanes;
+K2 fused GN accumulation (ops/gn_cuda.py, csrc/gn.cu) as the solvers on
+the card launch it, at B = 1 (scan_to_map) and over lanes (the scheduled
+solver's batched replay: each lane bit-equal to a one-lane launch), with
+rows and sums in float64; and K3 the GN solve and masked update of the
+solvers on the card (ops/gn_solve.py, csrc/gn_solve.cu); last,
+scan_to_map's loop on the card (K2 over one lane and K3 an iteration)
+against its host loop.
+chip_smoke.py runs the same comparisons at the front end's, the back
+end's and the batched replay's full shapes.
 """
+
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
 from lis_slam_torch.config import SlamConfig
-from lis_slam_torch.ops import gn_cuda, knn_cuda
+from lis_slam_torch.ops import gn_cuda, gn_solve, knn_cuda
 from lis_slam_torch.utils import se3
 
 pytestmark = pytest.mark.cuda
@@ -98,18 +103,51 @@ def _assert_scaled_close(a, b):
     torch.testing.assert_close(a / scale, b / scale, atol=2e-4, rtol=0)
 
 
+def _rows(pose, cfg):
+    """The (1, 2, 64) scalar rows K2 reads for `pose` (6,), on pose's
+    device: K3 with the solve skipped (gn_solve.scalar_rows)."""
+    return gn_solve.scalar_rows(
+        gn_solve.init_state(pose.reshape(1, 6).contiguous()), cfg)
+
+
+def _lane_hg(rows, corner, surf, k, dtype=None):
+    """K2 as the solvers on the card launch it, at B = 1
+    (gn_cuda.gn_iteration_lanes), on clouds (pts, mask, cand, cand_ok,
+    weight or None); with `dtype`, its plain version in that precision.
+    Returns the packed (43,)."""
+    args = (rows, *(t[None] for t in corner[:4]),
+            *(t[None] for t in surf[:4]),
+            *(None if c[4] is None else c[4][None] for c in (corner, surf)),
+            k)
+    if dtype is None:
+        return gn_cuda.gn_iteration_lanes(*args)[0]
+    return gn_cuda.gn_iteration_lanes_plain(*args, dtype)[0]
+
+
+def _one_cloud(mode, cloud):
+    """(corner, surf) for a launch over `cloud` alone: the other slot
+    holds it with every query masked out."""
+    off = (cloud[0], torch.zeros_like(cloud[1]), *cloud[2:])
+    return (cloud, off) if mode == "corner" else (off, cloud)
+
+
+def _unpack(hg):
+    return hg[:36].reshape(6, 6), hg[36:42], hg[42]
+
+
 @pytest.mark.parametrize("mode", ["corner", "surf"])
 def test_gn_kernel_matches_plain(dev, mode):
-    """Well-conditioned fits, one cloud: H and g to atol 2e-4 after
-    scaling, as tests/test_pallas_gn.py; two launches give the same bits."""
+    """Well-conditioned fits, one cloud (the other slot masked out): H and
+    g to atol 2e-4 after scaling against the plain version in the
+    kernel's precision (float64), as tests/test_pallas_gn.py; n_valid
+    equal; two launches give the same bits."""
     k = 8
-    pose = torch.tensor(_GN_POSE, device=dev)
-    args = (*_gn_cloud(dev, mode, 1000, k),
-            gn_cuda.pack_scalars(pose, SlamConfig().matching, mode))
+    pair = _one_cloud(mode, _gn_cloud(dev, mode, 1000, k))
+    rows = _rows(torch.tensor(_GN_POSE, device=dev), SlamConfig().matching)
     before = gn_cuda.gn_iteration_vec.launches
-    H, g, nv = gn_cuda.gn_partials(*args, mode, k)
-    H2, g2, _ = gn_cuda.gn_partials(*args, mode, k)
-    Hp, gp, nvp = gn_cuda.gn_partials_plain(*args, mode, k)
+    H, g, nv = _unpack(_lane_hg(rows, *pair, k))
+    H2, g2, _ = _unpack(_lane_hg(rows, *pair, k))
+    Hp, gp, nvp = _unpack(_lane_hg(rows, *pair, k, torch.float64))
     torch.cuda.synchronize()
     assert gn_cuda.gn_iteration_vec.launches == before + 2
     assert torch.equal(H, H2) and torch.equal(g, g2)  # no racing atomics
@@ -126,14 +164,14 @@ def _scaled_err(a, b):
 @pytest.mark.parametrize("seeds", [(1, 1), (4, 5)])
 @pytest.mark.parametrize("at_optimum", [True, False])
 def test_gn_kernel_two_clouds_one_launch(dev, weighted, seeds, at_optimum):
-    """One GN iteration, both clouds in one launch, against the sum of the
-    plain version over the two, on the same scalar rows (made on the
-    host): n_valid exact; H and g no further from the float64 plain sum
-    than 2e-4 scaled, or than twice the float32 plain sum where that is
-    further (a surf row whose neighbours are nearly collinear has an
-    ill-defined normal, and at the optimum g is a sum of cancelling
-    terms). Back-to-back launches, with one of another grid between them,
-    give the same bits (the last block resets the ticket)."""
+    """One GN iteration, both clouds in one launch at B = 1, against the
+    sum of the plain version over the two, on the same scalar rows (K3's):
+    n_valid exact; H and g no further from the float64 plain sum than
+    2e-4 scaled, or than twice the float32 plain sum where that is further
+    (a surf row whose neighbours are nearly collinear has an ill-defined
+    normal, and at the optimum g is a sum of cancelling terms).
+    Back-to-back launches, with one of another grid between them, give
+    the same bits (the last block resets the ticket)."""
     k = 8
     cfg = SlamConfig().matching
     pose = torch.tensor(_GN_POSE)
@@ -141,31 +179,20 @@ def test_gn_kernel_two_clouds_one_launch(dev, weighted, seeds, at_optimum):
         pose = pose + torch.tensor([0.002, -0.001, 0.004, 0.05, -0.03, 0.01])
     corner = _gn_cloud(dev, "corner", 1000, k, seed=seeds[0])
     surf = _gn_cloud(dev, "surf", 2000, k, seed=seeds[1])
-    cw, sw = (corner[4], surf[4]) if weighted else (None, None)
-    args = (pose, *corner[:4], *surf[:4], cw, sw, cfg, k)
+    if not weighted:
+        corner, surf = corner[:4] + (None,), surf[:4] + (None,)
+    rows = _rows(pose.to(dev), cfg)
     before = gn_cuda.gn_iteration_vec.launches
-    v1 = gn_cuda.gn_iteration_vec(*args)
-    other = gn_cuda.gn_iteration_vec(pose, *surf[:4], *corner[:4], None,
-                                     None, cfg, k)
-    v2 = gn_cuda.gn_iteration_vec(*args)
+    v1 = _lane_hg(rows, corner, surf, k)
+    other = _lane_hg(rows, surf[:4] + (None,), corner[:4] + (None,), k)
+    v2 = _lane_hg(rows, corner, surf, k)
     torch.cuda.synchronize()
     assert gn_cuda.gn_iteration_vec.launches == before + 3
     assert torch.equal(v1, v2) and not torch.equal(v1, other)
-    rows = gn_cuda.scalar_rows(pose, cfg).to(dev)
-
-    def plain(dtype):
-        sums = [gn_cuda.gn_partials_plain(*(
-            a.to(dtype) if a.is_floating_point() else a
-            for a in (*c[:4], c[4] if weighted else torch.ones_like(c[4]),
-                      rows[i])), m, k)
-            for i, (m, c) in enumerate((("corner", corner), ("surf", surf)))]
-        return [a + b for a, b in zip(*sums)]
-
-    Hp, gp, nvp = plain(torch.float32)
-    Hd, gd, _ = plain(torch.float64)
-    H, g, nv = gn_cuda.gn_iteration_hg(*args)
-    assert torch.equal(H.reshape(-1), v1[:36]) and torch.equal(g, v1[36:42])
-    assert nv.dtype == torch.int32 and int(nv) == int(nvp) > 1000
+    Hp, gp, nvp = _unpack(_lane_hg(rows, corner, surf, k, torch.float32))
+    Hd, gd, nvd = _unpack(_lane_hg(rows, corner, surf, k, torch.float64))
+    H, g, nv = _unpack(v1)
+    assert int(nv) == int(nvd) == int(nvp) > 1000
     assert torch.allclose(H, H.T, atol=0)  # the full symmetric H
     for a, a32, a64 in ((H, Hp, Hd), (g, gp, gd)):
         e_k = _scaled_err(a.double(), a64)
@@ -234,7 +261,9 @@ def test_kernels_at_lio_shapes(dev):
     chip_smoke.py phase lio). K1 equal to its plain version off exact
     ties; K2 no further from the float64 plain version than twice the
     float32 one (the circuit bound: real surf rows can have collinear
-    neighbours)."""
+    neighbours). K2 runs as the solver on the card launches it (B = 1,
+    float64), one cloud at a time, n_valid equal to its float64 plain
+    version's."""
     import dataclasses
 
     from lis_slam_torch.config import lio_config
@@ -269,15 +298,14 @@ def test_kernels_at_lio_shapes(dev):
                                        max_sq_dist=4.0)
         assert int(torch.isfinite(dp).sum()) > 0
         assert torch.equal(d, dp) and torch.equal(i, ip)  # bit-equal
-        args = (q.contiguous(), q_mask.contiguous(), cand,
-                (d < 4.0).contiguous(), torch.ones(q.shape[0], device=dev),
-                gn_cuda.pack_scalars(pose, cfg.matching, mode).contiguous())
-        H, g_, nv = gn_cuda.gn_partials(*args, mode, k)
-        Hp, gp, nvp = gn_cuda.gn_partials_plain(*args, mode, k)
-        Hd, gd, _ = gn_cuda.gn_partials_plain(
-            *(x.double() if x.is_floating_point() else x for x in args),
-            mode, k)
-        assert int(nvp) > 0 and int(nv) == int(nvp)
+        pair = _one_cloud(mode, (q.contiguous(), q_mask.contiguous(), cand,
+                                 (d < 4.0).contiguous(), None))
+        rows = _rows(torch.as_tensor(pose, dtype=torch.float32,
+                                     device=dev), cfg.matching)
+        H, g_, nv = _unpack(_lane_hg(rows, *pair, k))
+        Hp, gp, nvp = _unpack(_lane_hg(rows, *pair, k, torch.float32))
+        Hd, gd, nvd = _unpack(_lane_hg(rows, *pair, k, torch.float64))
+        assert int(nvp) > 0 and int(nv) == int(nvd)
 
         def err(a, b, ref_a, ref_b):
             return max(float((a - ref_a).abs().max() / ref_a.abs().max()),
@@ -322,7 +350,9 @@ def test_knn_kernel_k1_dynamic_removal(dev, empty):
 
 def test_gn_kernel_weighted_at_refine_shape(dev):
     """Non-unit semantic weights in [0.5, 2] at Q 8192 (the refinement's
-    matched surf capacity): scaled atol 2e-4 against the plain version."""
+    matched surf capacity), the surf cloud alone at B = 1: scaled atol
+    2e-4 against the plain version in the kernel's precision (float64),
+    n_valid equal."""
     r = np.random.default_rng(6)
     n_q, k = 8192, 8
     base = r.uniform(-30, 30, (n_q, 1, 3))
@@ -334,14 +364,15 @@ def test_gn_kernel_weighted_at_refine_shape(dev):
                              .astype(np.float32)).to(dev)
     pts = se3.transform_points(se3.transform_inverse(se3.pose_to_matrix(
         pose)), world).contiguous()
-    args = (pts, torch.from_numpy(r.uniform(size=n_q) > 0.1).to(dev),
-            torch.from_numpy(cand.astype(np.float32)).to(dev),
-            torch.from_numpy(r.uniform(size=(n_q, k)) > 0.1).to(dev),
-            torch.from_numpy(r.uniform(0.5, 2.0, n_q).astype(np.float32))
-            .to(dev),
-            gn_cuda.pack_scalars(pose, SlamConfig().matching, "surf"))
-    H, g, nv = gn_cuda.gn_partials(*args, "surf", k)
-    Hp, gp, nvp = gn_cuda.gn_partials_plain(*args, "surf", k)
+    cloud = (pts, torch.from_numpy(r.uniform(size=n_q) > 0.1).to(dev),
+             torch.from_numpy(cand.astype(np.float32)).to(dev),
+             torch.from_numpy(r.uniform(size=(n_q, k)) > 0.1).to(dev),
+             torch.from_numpy(r.uniform(0.5, 2.0, n_q).astype(np.float32))
+             .to(dev))
+    pair = _one_cloud("surf", cloud)
+    rows = _rows(pose, SlamConfig().matching)
+    H, g, nv = _unpack(_lane_hg(rows, *pair, k))
+    Hp, gp, nvp = _unpack(_lane_hg(rows, *pair, k, torch.float64))
     torch.cuda.synchronize()
     assert int(nvp) > 1000 and int(nv) == int(nvp)
     for a, b in ((H, Hp), (g, gp)):
@@ -400,7 +431,7 @@ def test_gn_kernel_lanes_bit_equal(dev, lanes):
     scalar rows from device memory, rows and sums in float64: one launch,
     each lane bit-equal to a one-lane launch on the unpadded lane, with
     n_valid equal to and H, g within 1e-6 scaled of the float64 plain
-    version, and n_valid equal to the float32 one-lane launch's."""
+    version, and n_valid equal to the float32 plain version's."""
     k, cfg = 8, SlamConfig().matching
     sizes = _LANE_SIZES[lanes][0]
     r = np.random.default_rng(11)
@@ -424,7 +455,8 @@ def test_gn_kernel_lanes_bit_equal(dev, lanes):
         n = max(c[j][0].shape[0] for c in clouds)
         lanes_args.append([pad([c[j][f] for c in clouds], n)
                            for f in range(5)])
-    rows = torch.stack([gn_cuda.scalar_rows(p, cfg) for p in poses]).to(dev)
+    rows = gn_solve.scalar_rows(
+        gn_solve.init_state(torch.stack(poses).to(dev)), cfg)
     before = gn_cuda.gn_iteration_vec.launches
     hg = gn_cuda.gn_iteration_lanes(rows, *lanes_args[0][:4],
                                     *lanes_args[1][:4], lanes_args[0][4],
@@ -435,11 +467,10 @@ def test_gn_kernel_lanes_bit_equal(dev, lanes):
                 *(t[None] for t in s_[:4]), c[4][None], s_[4][None], k)
         one = gn_cuda.gn_iteration_lanes(*lane)[0]
         ref = gn_cuda.gn_iteration_lanes_plain(*lane)[0]
-        vec = gn_cuda.gn_iteration_vec(poses[b], *c[:4], *s_[:4], c[4],
-                                       s_[4], cfg, k)
+        ref32 = gn_cuda.gn_iteration_lanes_plain(*lane, torch.float32)[0]
         torch.cuda.synchronize()
         assert torch.equal(hg[b], one), b
-        assert int(one[42]) == int(ref[42]) == int(vec[42]) > 0
+        assert int(one[42]) == int(ref[42]) == int(ref32[42]) > 0
         for a_, r_ in ((one[:36], ref[:36]), (one[36:42], ref[36:42])):
             scale = float(r_.abs().max()) + 1e-9
             torch.testing.assert_close(a_ / scale, r_ / scale, rtol=0,
@@ -480,8 +511,6 @@ def test_gn_solve_kernel_matches_plain(dev, lanes):
     frozen (converged before the call), under min_valid_points and with
     eigenvalues within 1e-3 relative of the threshold; the rows-only
     launch (solve = 0) equals the plain rows."""
-    from lis_slam_torch.ops import gn_solve
-
     cfg = SlamConfig().matching
     hg, pose0, kinds = _k3_lanes(lanes)
     hg = torch.from_numpy(hg).to(dev)
@@ -518,3 +547,41 @@ def test_gn_solve_kernel_matches_plain(dev, lanes):
     torch.testing.assert_close(only_rows,
                                gn_solve.scalar_rows_plain(new.pose, cfg),
                                rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["near", "refresh", "max_iterations",
+                                  "few_valid", "weighted"])
+def test_scan_to_map_on_card_is_the_host_loop(dev, case):
+    """scan_to_map on CUDA clouds under "pallas" (the solver state on the
+    card) against the host loop on the CPU on the same problem
+    (tests/test_torch_scan_to_map_resident.py's cases): the same
+    iterations and flags, n_valid within 0.5%, poses within 1e-5 rad and
+    1e-4 m; K2 launches = iterations, K3 launches = iterations + 1 (the
+    first scalar rows, then a solve an iteration), and at most
+    iterations + 1 host syncs a call."""
+    from lis_slam_torch.ops import scan_match
+    from test_torch_scan_to_map_resident import (CASES, assert_same_solve,
+                                                 matching, problem)
+
+    make, cfg_kw, max_it = CASES[case]
+    cfg = matching(**cfg_kw)
+    args, kw = problem(dev, **make)
+    want = scan_match.scan_to_map(*(a.cpu() for a in args), cfg, max_it,
+                                  **{k: v.cpu() for k, v in kw.items()})
+    scan_match.scan_to_map(*args, cfg, max_it, **kw)  # builds the kernels
+    torch.cuda.synchronize()
+    k2, k3 = gn_cuda.gn_iteration_vec.launches, gn_solve.solve.launches
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        caught.clear()  # what setting the mode itself warned
+        try:
+            got = scan_match.scan_to_map(*args, cfg, max_it, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchronizing" in str(w.message) for w in caught)
+    assert gn_cuda.gn_iteration_vec.launches - k2 == got.it
+    assert gn_solve.solve.launches - k3 == got.it + 1
+    assert 1 <= syncs <= got.it + 1, syncs
+    assert got.pose.device == args[0].device
+    assert_same_solve(got, want, n_valid_rtol=0.005)
